@@ -1,0 +1,64 @@
+"""The state bridge between the port and the JAX package.
+
+Both sides meet in numpy: the JAX ``FuncSNEState``'s fields as numpy
+arrays, with its PRNG key given as ``jax.random.key_data(key)`` words (a
+uint32 array of shape (2,)).  The port carries those words, so its counter
+hash folds the same salt and draws the same candidates and negatives.
+The JAX state's reverse-edge cache (``rev_idx``, ``rev_step``) is not
+ported; it must be empty (``c_hd_rev == 0``) and is left out.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.funcsne import (FuncSNEConfig, FuncSNEState,
+                                      resolve_device)
+
+_DTYPES = {
+    "Y": np.float32, "vel": np.float32, "gains": np.float32,
+    "hd_idx": np.int32, "hd_d": np.float32, "ld_idx": np.int32,
+    "ld_d": np.float32, "beta": np.float32, "new_flag": np.bool_,
+    "active": np.bool_, "ema_new_frac": np.float32, "zhat": np.float32,
+    "step": np.int32, "rng": np.uint32,
+}
+
+
+def _shapes(cfg: FuncSNEConfig):
+    n, d = cfg.n_points, cfg.dim_ld
+    return {"Y": (n, d), "vel": (n, d), "gains": (n, d),
+            "hd_idx": (n, cfg.k_hd), "hd_d": (n, cfg.k_hd),
+            "ld_idx": (n, cfg.k_ld), "ld_d": (n, cfg.k_ld), "beta": (n,),
+            "new_flag": (n,), "active": (n,), "ema_new_frac": (),
+            "zhat": (), "step": (), "rng": (2,)}
+
+
+def state_from_numpy(fields: Mapping, cfg: FuncSNEConfig,
+                     device="cuda") -> FuncSNEState:
+    """Port state from numpy fields (see the module docstring)."""
+    dev = resolve_device(device)
+    rev = fields.get("rev_idx")
+    if rev is not None and np.asarray(rev).size:
+        raise NotImplementedError("reverse-edge caches are not ported")
+    shapes = _shapes(cfg)
+    out = {}
+    for name, dtype in _DTYPES.items():
+        a = np.asarray(fields[name])
+        if a.shape != shapes[name]:
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{shapes[name]}")
+        # np.array copies C-contiguous and keeps 0-d shapes; the uint32
+        # key words ride in int64
+        a = np.array(a, dtype=np.int64 if name == "rng" else dtype)
+        out[name] = torch.from_numpy(a).to(dev)
+    return FuncSNEState(**out)
+
+
+def state_to_numpy(st: FuncSNEState) -> dict:
+    """numpy fields of a port state (``rng`` as uint32 key words)."""
+    out = {}
+    for name, dtype in _DTYPES.items():
+        out[name] = getattr(st, name).detach().cpu().numpy().astype(dtype)
+    return out
