@@ -20,7 +20,16 @@ dim_hd = 784, on an MNIST-shaped synthetic dataset, and checks it:
       neighbours on a fixed 2,000-row subsample above RECALL_MIN, steps/s
       and the R_NX AUC on a 5,000-row subsample;
   (e) each kernel's time (CUDA events) beside its bound and its plain
-      version's time, and a short profiler window of the step.
+      version's time, and a short profiler window of the step;
+  (f) the flag paths (gather_fused=False, scatter_fused=False,
+      merge_fused=False, c_hd_rev=4), each from the main path's final
+      state: its kernels against their plain versions at its shapes, one
+      step through the kernels against one through the plain versions, then
+      F_ITERS steps with the launch counters set to 0 just before (its own
+      kernels launched, no other; Y finite; recall above RECALL_MIN and
+      above the recall of the state it started from; steps/s beside the
+      default path's from the same state); B6 also at init_state's C = 32
+      and at C = 14 of c_hd_rev = 4; and the times of B5-B7.
 
 Any failed check raises, so the script exits non-zero.  The second-to-last
 line is the card's name and power limit; before it, one JSON line with the
@@ -30,6 +39,7 @@ beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,6 +50,7 @@ import torch
 
 N, DIM = 70_000, 784
 ITERS, CHUNK = 500, 50
+F_ITERS = 100                  # steps of each flag path in phase (f)
 RECALL_ROWS, AUC_ROWS = 2_000, 5_000
 # HD-list recall@32 after ITERS steps must exceed this.  The run is
 # deterministic; on an H100 it reached 0.5691, and the random initial lists
@@ -103,11 +114,15 @@ def max_err(a, b):
 
 
 class Recorder:
-    """Ops that record the arguments of each call, then run the kernel."""
+    """Ops that record each call as (entry point, args, kw), then run the
+    kernel.
+
+    Calls are keyed by the entry point's name, with _hd / _ld for B1 and
+    B2 and the call's index for B7 (three calls a step)."""
 
     def __init__(self, funcsne):
         self.calls = {}
-        k = funcsne.KERNELS
+        n_b7 = [0]
 
         def rec(name, fn):
             def f(*args, **kw):
@@ -116,13 +131,14 @@ class Recorder:
                     key += "_ld" if args[3] is None else "_hd"
                 elif name == "pairwise_sqdist_gather":
                     key += "_hd" if args[0].shape[1] > 2 else "_ld"
-                self.calls.setdefault(key, (args, kw))
+                elif name == "ne_forces":
+                    key += f"_{n_b7[0]}"
+                    n_b7[0] += 1
+                self.calls.setdefault(key, (name, args, kw))
                 return fn(*args, **kw)
             return f
-        self.ops = funcsne.Ops(
-            rec("pairwise_sqdist_gather", k.pairwise_sqdist_gather),
-            rec("knn_merge_cand", k.knn_merge_cand),
-            rec("ne_forces_scatter", k.ne_forces_scatter))
+        self.ops = funcsne.Ops(*[rec(name, fn) for name, fn in
+                                 zip(funcsne.Ops._fields, funcsne.KERNELS)])
 
 
 def main():
@@ -138,11 +154,16 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.knn_merge.ops import knn_merge_cand
     from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref
-    from repro_torch.kernels.ne_forces.ops import ne_forces_scatter
-    from repro_torch.kernels.ne_forces.ref import ne_forces_scatter_ref
-    from repro_torch.kernels.pairwise_sqdist.ops import pairwise_sqdist_gather
+    from repro_torch.kernels.ne_forces.ops import (ne_forces,
+                                                   ne_forces_gather,
+                                                   ne_forces_scatter)
+    from repro_torch.kernels.ne_forces.ref import (ne_forces_gather_ref,
+                                                   ne_forces_ref,
+                                                   ne_forces_scatter_ref)
+    from repro_torch.kernels.pairwise_sqdist.ops import (
+        pairwise_sqdist, pairwise_sqdist_gather)
     from repro_torch.kernels.pairwise_sqdist.ref import (
-        pairwise_sqdist_gather_ref)
+        pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -183,14 +204,14 @@ def main():
     errs = {}
 
     for mode in ("hd", "ld"):
-        (x, qid, cand), _ = rec.calls[f"pairwise_sqdist_gather_{mode}"]
+        _, (x, qid, cand), _ = rec.calls[f"pairwise_sqdist_gather_{mode}"]
         x = Xq if mode == "hd" else stq.Y          # both on integer grids
         got = pairwise_sqdist_gather(x, qid, cand)
         want = pairwise_sqdist_gather_ref(x, qid, cand)
         check(torch.equal(got, want), f"B1 {mode} not exact on quantised x")
         log(f"[b] B1 pairwise_sqdist_gather {mode}: x {tuple(x.shape)} "
             f"cand {tuple(cand.shape)}: exact on quantised inputs")
-    (x, qid, cand), _ = rec.calls["pairwise_sqdist_gather_hd"]
+    _, (x, qid, cand), _ = rec.calls["pairwise_sqdist_gather_hd"]
     got = pairwise_sqdist_gather(X, qid, cand)
     want = pairwise_sqdist_gather_ref(X, qid, cand)
     rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
@@ -201,7 +222,7 @@ def main():
     del got, want
 
     for mode in ("hd", "ld"):
-        args, kw = rec.calls[f"knn_merge_cand_{mode}"]
+        _, args, kw = rec.calls[f"knn_merge_cand_{mode}"]
         got = knn_merge_cand(*args, **kw)
         want = knn_merge_cand_ref(*args, **kw)
         for g, w, name in zip(got, want, ("idx", "d", "improved")):
@@ -212,7 +233,7 @@ def main():
             f"{args[2].shape[1]}: idx/d/improved exact on quantised inputs "
             f"({int(got[2].sum())} rows improved)")
 
-    (y, qid, nbr, coef, alpha), kw = rec.calls["ne_forces_scatter"]
+    _, (y, qid, nbr, coef, alpha), kw = rec.calls["ne_forces_scatter"]
     got = ne_forces_scatter(y, qid, nbr, coef, alpha, **kw)
     again = ne_forces_scatter(y, qid, nbr, coef, alpha, **kw)
     want = ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw)
@@ -275,8 +296,11 @@ def main():
     launches = dict(kernels.LAUNCHES)
     log(f"[d] main path: init {t_init:.2f}s, {ITERS} steps in {t_run:.2f}s "
         f"= {ITERS / t_run:.1f} steps/s; launches {launches}")
+    main_kernels = {"pairwise_sqdist_gather", "knn_merge_cand_hd",
+                    "knn_merge_cand_ld", "ne_forces_scatter"}
     for name, cnt in launches.items():
-        check(cnt > 0, f"kernel {name} never launched on the main path")
+        check((cnt > 0) == (name in main_kernels),
+              f"kernel {name}: {cnt} launches on the main path")
     check(bool(torch.isfinite(st.Y).all()), "Y not finite")
     rec1 = recall(st.hd_idx)
     sub = torch.randperm(N, generator=torch.Generator().manual_seed(2))[
@@ -293,16 +317,19 @@ def main():
     out = []
 
     def entry(name, source, replaces, fn, plain, reps, bytes_, flops, err,
-              count):
+              count, library=None, tag="[e]"):
         ms = time_ms(fn, reps)
         plain_ms = time_ms(plain, max(2, reps // 10))
+        lib_ms = None if library is None else time_ms(library,
+                                                      max(2, reps // 10))
         b_ms, b_by = bound(bytes_, flops)
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": count,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        log(f"[e] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-            f"{b_ms / ms:.1%} of it), plain {plain_ms:.3f} ms")
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        log(f"{tag} {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"{b_ms / ms:.1%} of it), plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f", library {lib_ms:.3f} ms"))
 
     # the final main-path state gives the timed inputs
     ids = torch.arange(N, dtype=torch.int32, device=dev)
@@ -324,7 +351,7 @@ def main():
     funcsne._ld_refine(cfg, st_t, base, rec.ops)
     funcsne._forces_update(cfg, st_t, hp, base, rec.ops)
     for mode, m_cols in (("hd", DIM), ("ld", cfg.dim_ld)):
-        args, kw = rec.calls[f"knn_merge_cand_{mode}"]
+        _, args, kw = rec.calls[f"knn_merge_cand_{mode}"]
         x, qid, cur_idx, cur_d = args
         c_cand = knn.counter_candidates(kw["salt"], qid, kw["sources"],
                                         kw["first_tables"],
@@ -346,7 +373,7 @@ def main():
         log(f"    {mode}: {scored} rows scored "
             f"({valid.float().mean():.3f} of candidates new)")
 
-    (y, qid, nbr, coef, alpha), kw = rec.calls["ne_forces_scatter"]
+    _, (y, qid, nbr, coef, alpha), kw = rec.calls["ne_forces_scatter"]
     scats, wsums = ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw)
     entry("ne_forces_scatter", "src/repro_torch/csrc/ne_forces.cu",
           "src/repro/kernels/ne_forces/kernel.py:451",
@@ -413,6 +440,191 @@ def main():
         f"profiler on: {wall:.1f} ms); device time by kernel:")
     for key, ms, cnt in sorted(rows_p, key=lambda r: -r[1])[:12]:
         log(f"    {ms:9.3f} ms  {cnt:5d}x  {key[:90]}")
+    del prof, rows_p
+
+    # ---- (f) the flag paths ----------------------------------------------
+    # (flags, the launch counters its F_ITERS steps must move; every other
+    # counter must stay at 0)
+    b2, b3 = {"knn_merge_cand_hd", "knn_merge_cand_ld"}, {"ne_forces_scatter"}
+    paths = {
+        "default": ({}, b2 | b3),
+        "gather_fused=False": (dict(gather_fused=False),
+                               {"pairwise_sqdist", "ne_forces"}),
+        "scatter_fused=False": (dict(scatter_fused=False),
+                                b2 | {"ne_forces_gather"}),
+        "merge_fused=False": (dict(merge_fused=False),
+                              {"pairwise_sqdist_gather"} | b3),
+        "c_hd_rev=4": (dict(c_hd_rev=4), b2 | b3),
+        "default, again": ({}, b2 | b3),   # brackets the flag paths' times
+    }
+    exact_ops = {"pairwise_sqdist_gather", "knn_merge_cand", "pairwise_sqdist"}
+
+    def flat(v):
+        return [t for x in v for t in flat(x)] if isinstance(v, tuple) \
+            else [v]
+
+    def held(key, op, args, kw, quantised):
+        """Kernel vs plain version on one recorded call; returns the max
+        abs error (exact on quantised inputs for the scoring kernels)."""
+        got = flat(getattr(funcsne.KERNELS, op)(*args, **kw))
+        want = flat(getattr(funcsne.PLAIN, op)(*args, **kw))
+        err = 0.0
+        for g, w in zip(got, want):
+            check((g is None) == (w is None), f"{key}: None outputs differ")
+            if w is None:
+                continue
+            if op in exact_ops and quantised:
+                check(torch.equal(g, w), f"{key} not exact on quantised input")
+            elif op == "pairwise_sqdist":
+                rel = float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+                check(rel <= TOL_SQDIST_REL, f"{key} relative error {rel}")
+            elif op in exact_ops:
+                continue
+            else:
+                e = max_err(g, w)
+                check(e <= TOL_FORCE_REL * float(w.abs().max()),
+                      f"{key} err {e}")
+            fin = torch.isfinite(w)
+            err = max(err, max_err(g[fin], w[fin]) if fin.any() else 0.0)
+        return err
+
+    def forced(s):
+        # E[N_new/N] = 1 makes the refinement gate fire
+        return s._replace(ema_new_frac=torch.ones_like(s.ema_new_frac))
+
+    scale = 256.0 / float(st.Y.abs().max())     # |Y| <= 64 on a quarter grid
+    rec_start = recall(st.hd_idx)      # each path must refine past its start
+    hp_f = funcsne.default_schedule(st.step, ITERS + F_ITERS, hp)
+    f_err, f_rec, f_launch, f_sps = {}, {}, {}, {}
+    for label, (flags, expect) in paths.items():
+        cfg_f = dataclasses.replace(cfg, **flags)
+        st0 = st
+        if cfg_f.c_hd_rev:        # an empty table, due at the first refinement
+            st0 = st._replace(
+                rev_idx=torch.zeros((N, cfg_f.c_hd_rev), dtype=torch.int32,
+                                    device=dev),
+                rev_step=st.step - cfg_f.rev_refresh)
+        if flags:
+            stq = forced(st0._replace(Y=torch.round(st0.Y * scale) / 4.0))
+            recq, recr = Recorder(funcsne), Recorder(funcsne)
+            funcsne.funcsne_step(cfg_f, stq, Xq, hp_f, ops=recq.ops)
+            funcsne.funcsne_step(cfg_f, forced(st0), X, hp_f, ops=recr.ops)
+            for key, call in recq.calls.items():
+                held(key, *call, True)
+            for key, call in recr.calls.items():
+                f_err[key] = held(key, *call, False)
+            if "ne_forces_gather" in recr.calls:
+                _, _, kw_g = recr.calls["ne_forces_gather"]
+                check(kw_g["emit_edges"] == (True, True, False),
+                      "B5 must not emit the negatives' edges")
+            f_rec[label] = recr
+            log(f"[f] {label}: kernels vs plain at this path's shapes: "
+                f"{sorted(recq.calls)} (scoring exact on quantised inputs)")
+            st_k = funcsne.funcsne_step(cfg_f, stq, Xq, hp_f,
+                                        ops=funcsne.KERNELS)
+            st_p = funcsne.funcsne_step(cfg_f, stq, Xq, hp_f,
+                                        ops=funcsne.PLAIN)
+            for name in ("hd_idx", "hd_d", "ld_idx", "new_flag", "step",
+                         "ema_new_frac", "rev_idx", "rev_step"):
+                check(torch.equal(getattr(st_k, name), getattr(st_p, name)),
+                      f"{label} step {name} differs")
+            for name in ("Y", "vel", "zhat"):
+                a, b = getattr(st_k, name), getattr(st_p, name)
+                e = max_err(a, b)
+                check(e <= TOL_STEP_REL * float(b.abs().max()),
+                      f"{label} step {name}: err {e}")
+            # reported, not checked: the index_add_ symmetrisation of the
+            # unfused force paths adds with atomics
+            y2 = funcsne.funcsne_step(cfg_f, stq, Xq, hp_f,
+                                      ops=funcsne.KERNELS).Y
+            log(f"    one step, kernels vs plain: ids/flags/reverse cache "
+                f"exact, Y/vel/zhat within {TOL_STEP_REL}; two kernel runs "
+                f"of the step: Y " + ("bit-identical" if torch.equal(
+                    y2, st_k.Y) else f"differs by {max_err(y2, st_k.Y):.3e}"))
+            del st_k, st_p, stq, recq, y2
+        chunk_f = funcsne.make_chunked_step(
+            cfg_f, CHUNK, schedule=funcsne.default_schedule,
+            n_iter=ITERS + F_ITERS)
+        funcsne.funcsne_step(cfg_f, st0, X, hp_f)     # warm-up, untimed
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_f = st0
+        for _ in range(F_ITERS // CHUNK):
+            s_f, _ = chunk_f(s_f, X, hp)
+        torch.cuda.synchronize()
+        f_sps[label] = F_ITERS / (time.perf_counter() - t0)
+        f_launch[label] = launches_f = dict(kernels.LAUNCHES)
+        moved = {k for k, v in launches_f.items() if v > 0}
+        check(moved == expect, f"{label}: launched {sorted(moved)}, "
+              f"expected {sorted(expect)}")
+        check(bool(torch.isfinite(s_f.Y).all()), f"{label}: Y not finite")
+        rec_f = recall(s_f.hd_idx)
+        check(rec_f > max(RECALL_MIN, rec_start),
+              f"{label}: HD recall {rec_f}, from {rec_start} at its start")
+        log(f"[f] {label}: {F_ITERS} steps at {f_sps[label]:.1f} steps/s; "
+            f"launches { {k: v for k, v in launches_f.items() if v} }; HD "
+            f"recall {rec_f:.4f} (from {rec_start:.4f}); Y finite")
+        del s_f
+    base_sps = (f_sps["default"] + f_sps["default, again"]) / 2
+    log(f"[f] steps/s from the main path's final state, against the default "
+        f"path before and after them ({f_sps['default']:.1f}, "
+        f"{f_sps['default, again']:.1f}; the main path in (d): "
+        f"{ITERS / t_run:.1f}): " + ", ".join(
+            f"{k} {v:.1f} ({v / base_sps:.2f}x)" for k, v in f_sps.items()
+            if not k.startswith("default")))
+
+    # B6 at the two shapes of gather_fused=False that the paths above do not
+    # record: init_state's scoring of the initial HD lists (C = k_hd) and the
+    # HD refinement with c_hd_rev = 4 (C = 14)
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    c_rev = (cfg.c_hd_non + cfg.c_hd_ld + cfg.c_hd_ld_non + cfg.c_hd_rand
+             + 4)
+    for c_cols in (cfg.k_hd, c_rev):
+        cand = st.hd_idx[:, :c_cols].contiguous()
+        for x, quantised in ((Xq, True), (X, False)):
+            held(f"pairwise_sqdist C={c_cols}", "pairwise_sqdist",
+                 (x[ids.long()], x[cand.long()]), {}, quantised)
+        log(f"[f] B6 at C = {c_cols}: exact on quantised X, relative error "
+            f"within {TOL_SQDIST_REL} on the real X")
+    del ids, cand
+
+    # B5-B7 at the flag paths' shapes, on the real final state
+    _, (q, c), _ = f_rec["gather_fused=False"].calls["pairwise_sqdist"]
+    out_6 = torch.empty(c.shape[:2], device=dev)
+    entry("pairwise_sqdist", "src/repro_torch/csrc/pairwise_sqdist.cu",
+          "src/repro/kernels/pairwise_sqdist/kernel.py:47",
+          lambda: pairwise_sqdist(q, c), lambda: pairwise_sqdist_ref(q, c), 10,
+          nbytes(q, c, out_6), 3.0 * c.numel(), f_err["pairwise_sqdist"],
+          f_launch["gather_fused=False"]["pairwise_sqdist"],
+          library=lambda: torch.cdist(
+              q[:, None, :], c, compute_mode="donot_use_mm_for_euclid_dist"),
+          tag="[f]")
+    del q, c, out_6
+    b7 = [f_rec["gather_fused=False"].calls[f"ne_forces_{i}"][1:]
+          for i in range(3)]
+    b7_out = [ne_forces_ref(*a, **kw) for a, kw in b7]
+    entry("ne_forces", "src/repro_torch/csrc/ne_forces.cu",
+          "src/repro/kernels/ne_forces/kernel.py:70",
+          lambda: [ne_forces(*a, **kw) for a, kw in b7],
+          lambda: [ne_forces_ref(*a, **kw) for a, kw in b7], 50,
+          nbytes(*[t for a, _ in b7 for t in a], *flat(tuple(
+              t for o in b7_out for t in o))),
+          20.0 * sum(a[2].numel() for a, _ in b7),
+          max(f_err[f"ne_forces_{i}"] for i in range(3)),
+          f_launch["gather_fused=False"]["ne_forces"], tag="[f]")
+    log("    (B7: the three launches of one step, timed together)")
+    _, (x5, q5, n5, c5, a5), kw5 = f_rec["scatter_fused=False"].calls[
+        "ne_forces_gather"]
+    o5 = [t for t in flat(ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5))
+          if t is not None]
+    entry("ne_forces_gather", "src/repro_torch/csrc/ne_forces.cu",
+          "src/repro/kernels/ne_forces/kernel.py:243",
+          lambda: ne_forces_gather(x5, q5, n5, c5, a5, **kw5),
+          lambda: ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5), 50,
+          nbytes(x5, q5, n5, c5, a5, *o5), 20.0 * n5.numel(),
+          f_err["ne_forces_gather"],
+          f_launch["scatter_fused=False"]["ne_forces_gather"], tag="[f]")
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 
     print(json.dumps({"kernels": out}), flush=True)

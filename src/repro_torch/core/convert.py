@@ -4,8 +4,8 @@ Both sides meet in numpy: the JAX ``FuncSNEState``'s fields as numpy
 arrays, with its PRNG key given as ``jax.random.key_data(key)`` words (a
 uint32 array of shape (2,)).  The port carries those words, so its counter
 hash folds the same salt and draws the same candidates and negatives.
-The JAX state's reverse-edge cache (``rev_idx``, ``rev_step``) is not
-ported; it must be empty (``c_hd_rev == 0``) and is left out.
+The reverse-edge cache (``rev_idx`` (N, c_hd_rev), ``rev_step``) crosses
+both ways, so a bridged state keeps the JAX package's rebuild cadence.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ _DTYPES = {
     "hd_idx": np.int32, "hd_d": np.float32, "ld_idx": np.int32,
     "ld_d": np.float32, "beta": np.float32, "new_flag": np.bool_,
     "active": np.bool_, "ema_new_frac": np.float32, "zhat": np.float32,
-    "step": np.int32, "rng": np.uint32,
+    "step": np.int32, "rng": np.uint32, "rev_idx": np.int32,
+    "rev_step": np.int32,
 }
 
 
@@ -32,16 +33,14 @@ def _shapes(cfg: FuncSNEConfig):
             "hd_idx": (n, cfg.k_hd), "hd_d": (n, cfg.k_hd),
             "ld_idx": (n, cfg.k_ld), "ld_d": (n, cfg.k_ld), "beta": (n,),
             "new_flag": (n,), "active": (n,), "ema_new_frac": (),
-            "zhat": (), "step": (), "rng": (2,)}
+            "zhat": (), "step": (), "rng": (2,),
+            "rev_idx": (n, cfg.c_hd_rev), "rev_step": ()}
 
 
 def state_from_numpy(fields: Mapping, cfg: FuncSNEConfig,
                      device="cuda") -> FuncSNEState:
     """Port state from numpy fields (see the module docstring)."""
     dev = resolve_device(device)
-    rev = fields.get("rev_idx")
-    if rev is not None and np.asarray(rev).size:
-        raise NotImplementedError("reverse-edge caches are not ported")
     shapes = _shapes(cfg)
     out = {}
     for name, dtype in _DTYPES.items():

@@ -10,12 +10,17 @@ One ``funcsne_step`` does, in the JAX package's order:
   5. forces (``_forces_update``): the scatter-fused force kernel, the Z
      estimate and the gains/momentum update.
 
-This slice ports the default configuration only: ``gather_fused``,
-``scatter_fused``, ``merge_fused`` and ``cand_fused`` on, no reverse-edge
-candidates.  Other settings raise ``NotImplementedError``.
+Every setting of the JAX config that draws from the counter RNG runs:
+the default fused path (kernels B1-B3), ``gather_fused=False`` (B6 on
+pre-gathered rows, B7 per force segment), ``scatter_fused=False`` (B5 and
+an ``index_add_`` symmetrisation), ``merge_fused=False`` (B1 and the plain
+dedup/merge) and reverse-edge candidates (``c_hd_rev > 0``, the table
+rebuilt every ``rev_refresh`` steps).  ``cand_fused=False`` draws from
+threefry, which the port lacks, and raises ``NotImplementedError``.
 
 PyTorch runs eagerly, so the chunk runner (``make_chunked_step``) is a
-Python loop over steps; the gate's branch is one host sync per step.
+Python loop over steps; the gate's branch and the reverse-table cadence are
+one host sync per step.
 Every draw inside a step comes from the counter hash keyed on the state's
 key words, so the port and the JAX package draw the same candidates and
 negatives from the same state.  ``init_state`` draws its random start
@@ -34,10 +39,15 @@ from repro_torch.core import knn
 from repro_torch.core.knn import SENTINEL
 from repro_torch.kernels.knn_merge.ops import knn_merge_cand
 from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref
-from repro_torch.kernels.ne_forces.ops import ne_forces_scatter
-from repro_torch.kernels.ne_forces.ref import ne_forces_scatter_ref
-from repro_torch.kernels.pairwise_sqdist.ops import pairwise_sqdist_gather
-from repro_torch.kernels.pairwise_sqdist.ref import pairwise_sqdist_gather_ref
+from repro_torch.kernels.ne_forces.ops import (ne_forces, ne_forces_gather,
+                                               ne_forces_scatter)
+from repro_torch.kernels.ne_forces.ref import (ne_forces_gather_ref,
+                                               ne_forces_ref,
+                                               ne_forces_scatter_ref)
+from repro_torch.kernels.pairwise_sqdist.ops import (pairwise_sqdist,
+                                                     pairwise_sqdist_gather)
+from repro_torch.kernels.pairwise_sqdist.ref import (
+    pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
 
 
 # --------------------------------------------------------------------------
@@ -56,7 +66,7 @@ class FuncSNEConfig:
     c_hd_ld: int = 2              # LD neighbours proposed cross-space
     c_hd_ld_non: int = 2          # LD neighbours-of-neighbours cross-space
     c_hd_rand: int = 2            # uniform probes
-    c_hd_rev: int = 0             # reverse edges (not ported yet)
+    c_hd_rev: int = 0             # reverse edges
     c_ld_non: int = 4
     c_ld_hd: int = 2
     c_ld_rand: int = 2
@@ -69,14 +79,12 @@ class FuncSNEConfig:
     scatter_fused: bool = True
     merge_fused: bool = True
     cand_fused: bool = True
+    rev_refresh: int = 10         # steps between reverse-table rebuilds
 
     def __post_init__(self):
-        off = [f for f in ("gather_fused", "scatter_fused", "merge_fused",
-                           "cand_fused") if not getattr(self, f)]
-        if off or self.c_hd_rev:
+        if not self.cand_fused:
             raise NotImplementedError(
-                f"the port runs the default fused path only (off: {off}, "
-                f"c_hd_rev={self.c_hd_rev})")
+                "cand_fused=False draws from threefry, which is not ported")
 
 
 class HParams(NamedTuple):
@@ -105,24 +113,31 @@ class FuncSNEState(NamedTuple):
     zhat: Any       # () f32 EMA'd Z estimator
     step: Any       # () int32
     rng: Any        # (2,) int64: the uint32 words of the JAX key
+    rev_idx: Any    # (N, c_hd_rev) int32 cached reverse edges
+    rev_step: Any   # () int32 step of the last reverse-table rebuild
 
 
 class Ops(NamedTuple):
-    """The three kernel entry points a step calls."""
-    pairwise_sqdist_gather: Callable
-    knn_merge_cand: Callable
-    ne_forces_scatter: Callable
+    """The kernel entry points a step calls."""
+    pairwise_sqdist_gather: Callable    # B1
+    knn_merge_cand: Callable            # B2
+    ne_forces_scatter: Callable         # B3
+    ne_forces_gather: Callable          # B5
+    pairwise_sqdist: Callable           # B6
+    ne_forces: Callable                 # B7
 
 
 # the kernel wrappers (the plain version on CPU tensors, the CUDA kernel on
 # CUDA tensors) -- and the plain versions alone, which run on either
 # device and are what the kernels are compared with on the card
-KERNELS = Ops(pairwise_sqdist_gather, knn_merge_cand, ne_forces_scatter)
+KERNELS = Ops(pairwise_sqdist_gather, knn_merge_cand, ne_forces_scatter,
+              ne_forces_gather, pairwise_sqdist, ne_forces)
 PLAIN = Ops(pairwise_sqdist_gather_ref, knn_merge_cand_ref,
-            ne_forces_scatter_ref)
+            ne_forces_scatter_ref, ne_forces_gather_ref, pairwise_sqdist_ref,
+            ne_forces_ref)
 
 # counter-RNG stream tags: per-step salts are hash3(base, step, TAG)
-_TAG_GATE, _TAG_HD, _TAG_LD, _TAG_NEG = 1, 2, 3, 4
+_TAG_GATE, _TAG_HD, _TAG_LD, _TAG_NEG, _TAG_REV = 1, 2, 3, 4, 5
 
 
 def resolve_device(device) -> torch.device:
@@ -162,16 +177,59 @@ def _ids(st: FuncSNEState):
 # Phases
 
 
-def _hd_refine(cfg: FuncSNEConfig, st: FuncSNEState, X, base, ops: Ops):
+def _row_sqdist(cfg: FuncSNEConfig, X, ids, cand, ops: Ops):
+    """Squared HD distances rows -> candidates: B1 on indices, or with
+    ``gather_fused=False`` B6 on the pre-gathered rows."""
+    if cfg.gather_fused:
+        return ops.pairwise_sqdist_gather(X, ids, cand)
+    return ops.pairwise_sqdist(X[ids.long()], _take(X, cand))
+
+
+def _rev_update(cfg: FuncSNEConfig, st: FuncSNEState, base):
+    """Rebuild the cached reverse-edge table from the current HD lists.
+
+    The caller decides, from ``rev_step`` read on the host, that
+    ``rev_refresh`` steps have passed since the last rebuild; the cadence
+    counts from that rebuild because refinement itself runs behind the
+    stochastic gate.
+    """
+    n = cfg.n_points
+    fill = knn.counter_fill(knn.hash3(base, st.step, _TAG_REV), n,
+                            cfg.c_hd_rev)
+    rev = knn.reverse_neighbors(st.hd_idx, n, cfg.c_hd_rev, fill=fill)
+    return st._replace(rev_idx=rev, rev_step=st.step.clone())
+
+
+def _hd_refine(cfg: FuncSNEConfig, st: FuncSNEState, X, base, ops: Ops,
+               rev_due: bool = False):
+    """HD refinement; ``rev_due`` rebuilds the reverse table first."""
+    n = cfg.n_points
+    ids = _ids(st)
     salt = knn.hash3(base, st.step, _TAG_HD)
+    rev = None
+    if cfg.c_hd_rev:
+        if rev_due:
+            st = _rev_update(cfg, st, base)
+        rev = st.rev_idx
     sources = (("two_hop", 0, 0, cfg.c_hd_non),
                ("one_hop", 1, cfg.c_hd_ld),
                ("two_hop", 1, 1, cfg.c_hd_ld_non),
-               ("uniform", cfg.c_hd_rand))
-    new_idx, new_d, improved = ops.knn_merge_cand(
-        X, _ids(st), st.hd_idx, st.hd_d, salt=salt, sources=sources,
-        first_tables=(st.hd_idx, st.ld_idx),
-        second_tables=(st.hd_idx, st.ld_idx), active=st.active)
+               ("uniform", cfg.c_hd_rand),
+               ("extra", cfg.c_hd_rev))
+    firsts, seconds = (st.hd_idx, st.ld_idx), (st.hd_idx, st.ld_idx)
+    if cfg.merge_fused and cfg.gather_fused:
+        new_idx, new_d, improved = ops.knn_merge_cand(
+            X, ids, st.hd_idx, st.hd_d, salt=salt, sources=sources,
+            first_tables=firsts, second_tables=seconds, extra=rev,
+            active=st.active)
+    else:
+        cand = knn.counter_candidates(salt, ids, sources, firsts, seconds,
+                                      n_total=n, extra=rev)
+        valid = knn.dedup_candidates(ids, st.hd_idx, cand)
+        valid &= _take(st.active, cand)
+        cand_d = _row_sqdist(cfg, X, ids, cand, ops)
+        new_idx, new_d, improved = knn.merge_knn(st.hd_idx, st.hd_d, cand,
+                                                 cand_d, valid)
     n_act = st.active.float().sum().clamp_min(1.0)
     frac = (improved & st.active).float().sum() / n_act
     ema = cfg.ema_decay * st.ema_new_frac + (1.0 - cfg.ema_decay) * frac
@@ -189,21 +247,51 @@ def _sigma_refresh(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams):
 
 
 def _ld_refine(cfg: FuncSNEConfig, st: FuncSNEState, base, ops: Ops):
+    n = cfg.n_points
+    ids = _ids(st)
     salt = knn.hash3(base, st.step, _TAG_LD)
     sources = (("two_hop", 0, 0, cfg.c_ld_non),
                ("one_hop", 1, cfg.c_ld_hd),
                ("uniform", cfg.c_ld_rand))
+    firsts, seconds = (st.ld_idx, st.hd_idx), (st.ld_idx,)
     cur_valid = (st.ld_idx != SENTINEL) & _take(st.active, st.ld_idx)
-    new_idx, new_d, _ = ops.knn_merge_cand(
-        st.Y, _ids(st), st.ld_idx, None, salt=salt, sources=sources,
-        first_tables=(st.ld_idx, st.hd_idx), second_tables=(st.ld_idx,),
-        active=st.active, cur_valid=cur_valid)
+    if cfg.merge_fused and cfg.gather_fused:
+        new_idx, new_d, _ = ops.knn_merge_cand(
+            st.Y, ids, st.ld_idx, None, salt=salt, sources=sources,
+            first_tables=firsts, second_tables=seconds, active=st.active,
+            cur_valid=cur_valid)
+        return st._replace(ld_idx=new_idx, ld_d=new_d)
+    cand = knn.counter_candidates(salt, ids, sources, firsts, seconds,
+                                  n_total=n)
+    valid = knn.dedup_candidates(ids, st.ld_idx, cand)
+    valid &= _take(st.active, cand)
+    # re-score the current rows too: the embedding moved since the merge
+    k = st.ld_idx.shape[1]
+    if cfg.gather_fused:
+        both = ops.pairwise_sqdist_gather(st.Y, ids,
+                                          torch.cat([st.ld_idx, cand], dim=1))
+        cur_d, cand_d = both[:, :k], both[:, k:]
+    else:
+        y_l = st.Y[ids.long()]
+        cur_d = ((_take(st.Y, st.ld_idx) - y_l[:, None, :]) ** 2).sum(-1)
+        cand_d = ((_take(st.Y, cand) - y_l[:, None, :]) ** 2).sum(-1)
+    cur_d = torch.where(cur_valid, cur_d, torch.inf)
+    new_idx, new_d, _ = knn.merge_knn(st.ld_idx, cur_d, cand, cand_d, valid)
     return st._replace(ld_idx=new_idx, ld_d=new_d)
 
 
 def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, base,
                    ops: Ops):
-    n = cfg.n_points
+    """Forces, the Z estimate and the gains/momentum update.
+
+    The default path bins every edge in B3 (deterministic fixed point).
+    With ``scatter_fused=False`` (B5) or ``gather_fused=False`` (B7) the
+    kernels return per-edge forces and the symmetrisation is three
+    ``index_add_`` calls, as the JAX package's ``.at[].add``; on CUDA those
+    add with atomics in a run-dependent order, so that path is not
+    bit-deterministic on the card.
+    """
+    n, d = cfg.n_points, cfg.dim_ld
     ids = _ids(st)
     act_l = st.active
     n_act = st.active.float().sum().clamp_min(2.0)
@@ -237,9 +325,21 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, base,
         back += (False,)
         scale_neg = (n_act - 1.0 - cfg.k_ld).clamp_min(1.0) / cfg.n_negatives
 
-    scats, wsums = ops.ne_forces_scatter(
-        st.Y, ids, torch.cat(nbr, dim=1), torch.cat(coef, dim=1), hp.alpha,
-        segments=segments, scatter_back=back)
+    scatter_fused = cfg.gather_fused and cfg.scatter_fused
+    if scatter_fused:
+        scats, wsums = ops.ne_forces_scatter(
+            st.Y, ids, torch.cat(nbr, dim=1), torch.cat(coef, dim=1),
+            hp.alpha, segments=segments, scatter_back=back)
+    elif cfg.gather_fused:
+        # the negatives' edges are never scattered back: not emitted
+        aggs, edges, wsums = ops.ne_forces_gather(
+            st.Y, ids, torch.cat(nbr, dim=1), torch.cat(coef, dim=1),
+            hp.alpha, segments=segments, emit_edges=back)
+    else:
+        y_l = st.Y[ids.long()]
+        outs = [ops.ne_forces(y_l, _take(st.Y, i), c, hp.alpha, mode=mode)
+                for i, c, (mode, _) in zip(nbr, coef, segments)]
+        aggs, edges, wsums = zip(*outs)
 
     # Z ~= sum_i [sum_{j in LD_i} w_ij + scale * mean_neg]; x2 undoes the
     # 0.5 symmetrisation coefficient of coef_r
@@ -253,9 +353,22 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, base,
 
     attr_s = hp.attraction * hp.exaggeration
     rep_s = hp.repulsion / zhat
-    buf = attr_s * scats[0] + rep_s * scats[1]
-    if have_neg:
-        buf = buf + (rep_s * scale_neg) * scats[2]
+    if scatter_fused:
+        buf = attr_s * scats[0] + rep_s * scats[1]
+        if have_neg:
+            buf = buf + (rep_s * scale_neg) * scats[2]
+    else:
+        if have_neg:
+            agg_q = attr_s * aggs[0] + rep_s * (aggs[1] + scale_neg * aggs[2])
+        else:
+            agg_q = attr_s * aggs[0] + rep_s * aggs[1]
+        buf = torch.zeros((n, d), dtype=torch.float32, device=ids.device)
+        buf.index_add_(0, ids, agg_q)
+        # each directed edge also acts on its neighbour row
+        for i, edge, s in ((st.hd_idx, edges[0], attr_s),
+                           (st.ld_idx, edges[1], rep_s)):
+            buf.index_add_(0, i.long().clamp(0, n - 1).reshape(-1),
+                           -(s * edge).reshape(-1, d))
     dY = 4.0 * buf
 
     # t-SNE gains + momentum
@@ -283,10 +396,12 @@ def funcsne_step(cfg: FuncSNEConfig, st: FuncSNEState, X, hp: HParams,
     p_ref = cfg.min_refresh_prob \
         + (1.0 - cfg.min_refresh_prob) * st.ema_new_frac
     u = knn.counter_uniform01(knn.hash3(base, st.step, _TAG_GATE))
-    do_hd, step = torch.stack([(u < p_ref.clamp(0.0, 1.0)).int(),
-                               st.step.int()]).tolist()
+    do_hd, step, rev_step = torch.stack([
+        (u < p_ref.clamp(0.0, 1.0)).int(), st.step.int(),
+        st.rev_step.int()]).tolist()
     if do_hd:
-        st = _hd_refine(cfg, st, X, base, ops)
+        st = _hd_refine(cfg, st, X, base, ops,
+                        rev_due=step - rev_step >= cfg.rev_refresh)
     # The JAX step also requires any(new_flag); without a flag the refresh
     # changes nothing (beta is kept where no flag is set, and the cleared
     # flags are already clear), so that host sync is skipped here.
@@ -366,14 +481,17 @@ def init_state(X, cfg: FuncSNEConfig, *, seed: int = 0, init: str = "pca",
 
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     hd_idx = knn.init_knn_idx(g, n, n, cfg.k_hd, device=dev)
-    hd_d = ops.pairwise_sqdist_gather(X, ids, hd_idx)
+    hd_d = _row_sqdist(cfg, X, ids, hd_idx, ops)
     hd_d = torch.where(_take(active, hd_idx) & active[:, None], hd_d,
                        torch.inf)
     hd_d, order = torch.sort(hd_d, dim=1, stable=True)
     hd_idx = torch.gather(hd_idx, 1, order)
 
     ld_idx = knn.init_knn_idx(g, n, n, cfg.k_ld, device=dev)
-    ld_d = ops.pairwise_sqdist_gather(Y, ids, ld_idx)
+    if cfg.gather_fused:
+        ld_d = ops.pairwise_sqdist_gather(Y, ids, ld_idx)
+    else:
+        ld_d = ((Y[:, None, :] - _take(Y, ld_idx)) ** 2).sum(-1)
     ld_d = torch.where(_take(active, ld_idx) & active[:, None], ld_d,
                        torch.inf)
     rng = torch.randint(0, 2 ** 32, (2,), generator=g,
@@ -391,7 +509,11 @@ def init_state(X, cfg: FuncSNEConfig, *, seed: int = 0, init: str = "pca",
         new_flag=torch.ones((n,), dtype=torch.bool, device=dev),
         active=active, ema_new_frac=scalar(1.0, torch.float32),
         zhat=scalar(1.0, torch.float32), step=scalar(0, torch.int32),
-        rng=rng)
+        rng=rng,
+        # rev_step one period in the past: the first refinement rebuilds
+        rev_idx=torch.zeros((n, cfg.c_hd_rev), dtype=torch.int32,
+                            device=dev),
+        rev_step=scalar(-cfg.rev_refresh, torch.int32))
 
 
 # --------------------------------------------------------------------------

@@ -146,6 +146,41 @@ def counter_candidates(salt, rows, sources, first_tables=(),
     return torch.cat(parts, dim=1)
 
 
+def counter_fill(salt, n: int, r: int) -> torch.Tensor:
+    """(n, r) uniform fill table for ``reverse_neighbors`` (counter RNG):
+    entry (i, j) is ``counter_randint(salt, i, j, n)``."""
+    dev = torch.as_tensor(salt).device
+    rows = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    draws = torch.arange(r, dtype=torch.int64, device=dev)[None, :]
+    return counter_randint(salt, rows, draws, n)
+
+
+def reverse_neighbors(idx, n_total: int, r: int, *, fill):
+    """Up to ``r`` points that list each point as a neighbour.
+
+    One stable sort over the n*K directed edges groups them by target; row
+    i takes the first ``r`` sources of its group in source order, and the
+    slots it cannot fill come from the same slots of ``fill`` (n_total, r).
+    The counterpart of ``repro.core.knn.reverse_neighbors(..., fill=)``:
+    ``jnp.argsort`` is stable and ``jnp.searchsorted`` left-sided.
+    Returns (n_total, r) int32.
+    """
+    n, k = idx.shape
+    dev = idx.device
+    tgt = idx.reshape(-1)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(k)
+    tgt_s, order = torch.sort(tgt, stable=True)
+    src_s = src[order]
+    starts = torch.searchsorted(
+        tgt_s, torch.arange(n_total, dtype=tgt_s.dtype, device=dev),
+        right=False)
+    ends = torch.cat([starts[1:], starts.new_full((1,), tgt_s.shape[0])])
+    slot = torch.arange(r, dtype=starts.dtype, device=dev)[None, :]
+    valid = slot < (ends - starts)[:, None]
+    gathered = src_s[(starts[:, None] + slot).clamp(0, src_s.shape[0] - 1)]
+    return torch.where(valid, gathered, fill.to(torch.int32))
+
+
 def init_knn_idx(generator: torch.Generator, n_rows: int, n_total: int,
                  k: int, row_offset: int = 0, device="cpu"):
     """Random initial neighbour sets: (random base + 0..k-1) mod n.

@@ -3,10 +3,11 @@
 //  * The counter hash: the same lowbias32 arithmetic as repro.core.knn
 //    (hash_mix / hash3 / counter_randint), on uint32_t, where unsigned
 //    wraparound and logical shifts are the language's own semantics.
-//  * warp_row_sqdist: the row-gather squared-distance reduction.  It is the
-//    one copy of the scoring stage used by pairwise_sqdist_gather (B1) and
-//    the candidate-fused merge (B2), as score_gather_block is the one copy
-//    in the JAX package.
+//  * warp_sqdist: the squared-distance reduction of two rows by one warp.
+//    It is the one copy of the scoring stage, used through warp_row_sqdist
+//    by pairwise_sqdist_gather (B1) and the candidate-fused merge (B2), as
+//    score_gather_block is the one copy in the JAX package, and directly by
+//    the pre-gathered pairwise_sqdist (B6).
 #pragma once
 
 #include <cstdint>
@@ -43,16 +44,13 @@ __device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-// ||x[a] - x[b]||^2 over the M columns of the row-major (N, M) matrix x,
-// summed by one warp: the lanes stride over M (16-byte float4 loads when
-// `vec4`, i.e. M % 4 == 0 and x 16-byte aligned) and a butterfly reduction
-// leaves the full sum in every lane.  All 32 lanes must call it together.
-__device__ __forceinline__ float warp_row_sqdist(const float* __restrict__ x,
-                                                 int64_t m, int64_t a,
-                                                 int64_t b, int lane,
-                                                 bool vec4) {
-  const float* xa = x + a * m;
-  const float* xb = x + b * m;
+// ||xa - xb||^2 over M floats, summed by one warp: the lanes stride over M
+// (16-byte float4 loads when `vec4`, i.e. M % 4 == 0 and both rows 16-byte
+// aligned) and a butterfly reduction leaves the full sum in every lane.  All
+// 32 lanes must call it together.
+__device__ __forceinline__ float warp_sqdist(const float* __restrict__ xa,
+                                             const float* __restrict__ xb,
+                                             int64_t m, int lane, bool vec4) {
   float acc = 0.f;
   if (vec4) {
     const float4* va = reinterpret_cast<const float4*>(xa);
@@ -72,6 +70,14 @@ __device__ __forceinline__ float warp_row_sqdist(const float* __restrict__ x,
   }
   for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
   return acc;
+}
+
+// ||x[a] - x[b]||^2 for rows a and b of the row-major (N, M) matrix x.
+__device__ __forceinline__ float warp_row_sqdist(const float* __restrict__ x,
+                                                 int64_t m, int64_t a,
+                                                 int64_t b, int lane,
+                                                 bool vec4) {
+  return warp_sqdist(x + a * m, x + b * m, m, lane, vec4);
 }
 
 inline bool can_vec4(const float* x, int64_t m) {

@@ -27,6 +27,31 @@
 // (S, N, d) accumulators that stay in L2; pass 3 converts back to float32.
 // A non-finite term sets a flag that turns the whole output into NaN.
 // The price is reading the index and coefficient arrays twice.
+//
+// B5 and B7: edge-emitting forces, one kernel template in two input modes.
+//
+// B5 replaces src/repro/kernels/ne_forces/kernel.py, ne_forces_gather_pallas
+//   (body _ne_forces_gather_kernel): index-taking and segmented, rows read
+//   through x[clip(qid)] and x[clip(nbr_idx)].  On the scatter_fused=False
+//   path it runs once per step with B3's three segments (K = 32 + 16 + 16)
+//   and writes the edges of the first two only (emit_edges (T, T, F)).
+// B7 replaces ne_forces_pallas (body _ne_forces_kernel): pre-gathered, one
+//   segment (one mode) per launch on y (B, d) and nbr (B, K, d).  On the
+//   gather_fused=False path it runs three times per step: attraction on
+//   Y[hd] (K = 32), repulsion on Y[ld] (16) and on Y[neg] (16).
+// Per segment s, row b: agg_s[b] = sum_k edge, wsum_s[b] = sum_k w-term,
+//   edge_s[b, k] written where the segment emits; the caller symmetrises
+//   (index_add_ of -edge), so these outputs are deterministic themselves.
+//
+// Bound on the H100: bytes.  The index, coefficient and edge arrays dominate
+// (B5: 36 MB read, 27 MB of edges written; B7 also reads the gathered
+// (B, K, d) rows); the arithmetic is B3's, a few dozen flops per edge.
+//
+// Design: one warp per row, lane k handles edges k, k + 32, ... with the
+// shared edge_term, so edges are written coalesced (lane-contiguous) and agg
+// and wsum are warp sums.  The TPU kernel's SMEM index slabs and
+// double-buffered row DMAs have no counterpart: the per-lane loads of
+// neighbour rows are served by L2, where the (N, d) embedding stays.
 #include "common.cuh"
 
 namespace {
@@ -57,6 +82,29 @@ struct ForceArgs {
   int seg_size[kMaxSeg];
   int seg_mode[kMaxSeg];       // 0 attraction, 1 repulsion
   int seg_back[kMaxSeg];       // scatter the reaction to the neighbour row
+};
+
+// Mirrored field for field by the ctypes Structure in
+// repro_torch/kernels/ne_forces/ops.py.  Gathered mode (B5) sets x, qid and
+// nbr_idx; pre-gathered mode (B7) sets y and nbr.
+struct EdgeArgs {
+  const float* x;              // (N, D) embedding, B5
+  int64_t n;
+  const int* qid;              // (B,), B5
+  const int* nbr_idx;          // (B, K), B5
+  const float* y;              // (B, D) query rows, B7
+  const float* nbr;            // (B, K, D) neighbour rows, B7
+  const float* coef;           // (B, K)
+  const float* alpha;          // device scalar
+  int64_t b;
+  int k;
+  int n_seg;
+  int seg_start[kMaxSeg];
+  int seg_size[kMaxSeg];
+  int seg_mode[kMaxSeg];       // 0 attraction, 1 repulsion
+  float* edge[kMaxSeg];        // (B, seg_size, D), null = not emitted
+  float* agg;                  // (S, B, D)
+  float* wsum;                 // (S, B)
 };
 
 namespace {
@@ -214,7 +262,78 @@ int launch(const ForceArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool kGathered>
+__global__ void __launch_bounds__(kWarps * 32)
+    forces_edges_kernel(const EdgeArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (r >= a.b) return;  // uniform per warp
+  const float alpha = *a.alpha;
+  const float* yrow =
+      kGathered ? a.x + repro::clamp_row(a.qid[r], a.n) * D : a.y + r * D;
+  float yq[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) yq[c] = yrow[c];
+  for (int s = 0; s < a.n_seg; ++s) {
+    const int size = a.seg_size[s];
+    float* edge_out = a.edge[s];
+    float agg[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) agg[c] = 0.f;
+    float ws = 0.f;
+    for (int i = lane; i < size; i += 32) {
+      const int64_t j = r * a.k + a.seg_start[s] + i;
+      const float* yt = kGathered
+                            ? a.x + repro::clamp_row(a.nbr_idx[j], a.n) * D
+                            : a.nbr + j * D;
+      float e[D];
+      ws += edge_term<D>(a.seg_mode[s], alpha, yq, yt, a.coef[j], e);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        agg[c] += e[c];
+        if (edge_out != nullptr) edge_out[(r * size + i) * D + c] = e[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) agg[c] = warp_sum(agg[c]);
+    ws = warp_sum(ws);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) a.agg[(s * a.b + r) * D + c] = agg[c];
+      a.wsum[s * a.b + r] = ws;
+    }
+  }
+}
+
+template <int D>
+int launch_edges(const EdgeArgs& a, cudaStream_t stream) {
+  if (a.b > 0) {
+    const unsigned rows = static_cast<unsigned>((a.b + kWarps - 1) / kWarps);
+    if (a.x != nullptr) {
+      forces_edges_kernel<D, true><<<rows, kWarps * 32, 0, stream>>>(a);
+    } else {
+      forces_edges_kernel<D, false><<<rows, kWarps * 32, 0, stream>>>(a);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int repro_ne_forces_edges(const EdgeArgs* args, int d,
+                                     cudaStream_t stream) {
+  if (args->n_seg < 1 || args->n_seg > kMaxSeg) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (d) {
+    case 1: return launch_edges<1>(*args, stream);
+    case 2: return launch_edges<2>(*args, stream);
+    case 3: return launch_edges<3>(*args, stream);
+    case 4: return launch_edges<4>(*args, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 extern "C" int repro_ne_forces_scatter(const ForceArgs* args, int d,
                                        cudaStream_t stream) {

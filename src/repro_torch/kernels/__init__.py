@@ -14,6 +14,9 @@ LAUNCHES = {
     "knn_merge_cand_hd": 0,
     "knn_merge_cand_ld": 0,
     "ne_forces_scatter": 0,
+    "pairwise_sqdist": 0,
+    "ne_forces": 0,
+    "ne_forces_gather": 0,
 }
 
 

@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the scatter-fused force kernel (B3).
+"""Plain PyTorch versions of the force kernels: pre-gathered (B7),
+index-taking with per-edge output (B5) and scatter-fused (B3).
 
 Variable-tail LD kernel (paper Eq. 4): w(d2) = (1 + d2/alpha)^(-alpha), with
   attraction: edge = coef * w^(1/alpha) * (nbr - y),      wsum = sum coef * w^(1/alpha)
   repulsion:  edge = coef * w^(1+1/alpha) * (y - nbr),    wsum = sum coef * w
-Each segment's edges are binned into an (N, d) field: the query row gets
-the sum of its edges, and where the segment scatters back each neighbour
-row gets the edge's reaction (-edge).
+B7 and B5 return each row's sum of edges (agg), the edges themselves and
+the wsums.  B3 bins each segment's edges into an (N, d) field: the query
+row gets the sum of its edges, and where the segment scatters back each
+neighbour row gets the edge's reaction (-edge).
 """
 from __future__ import annotations
 
@@ -30,6 +32,26 @@ def ne_forces_ref(y, nbr, coef, alpha, *, mode: str):
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return edge.sum(dim=1), edge, wsum
+
+
+def ne_forces_gather_ref(x, qid, nbr_idx, coef, alpha, *, segments,
+                         emit_edges):
+    """Per-segment (aggs, edges, wsums) from indices, as
+    ``repro.kernels.ne_forces.ref.ne_forces_gather_ref``: ``edges[s]`` is
+    None where ``emit_edges[s]`` is False; ids are clipped to [0, N)."""
+    n = x.shape[0]
+    y = x[qid.long().clamp(0, n - 1)]
+    aggs, edges, wsums = [], [], []
+    k0 = 0
+    for (mode, size), emit in zip(segments, emit_edges):
+        tgt = nbr_idx[:, k0:k0 + size].long().clamp(0, n - 1)
+        agg, edge, wsum = ne_forces_ref(y, x[tgt], coef[:, k0:k0 + size],
+                                        alpha, mode=mode)
+        aggs.append(agg)
+        edges.append(edge if emit else None)
+        wsums.append(wsum)
+        k0 += size
+    return tuple(aggs), tuple(edges), tuple(wsums)
 
 
 def ne_forces_scatter_ref(x, qid, nbr_idx, coef, alpha, *, segments,

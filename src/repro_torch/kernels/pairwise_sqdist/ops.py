@@ -1,5 +1,5 @@
-"""Gathered squared distances (B1): plain version on the CPU, the CUDA
-kernel ``csrc/pairwise_sqdist.cu`` on the card."""
+"""Squared distances, gathered (B1) and pre-gathered (B6): plain versions on
+the CPU, the CUDA kernels of ``csrc/pairwise_sqdist.cu`` on the card."""
 from __future__ import annotations
 
 import ctypes
@@ -7,10 +7,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
-from repro_torch.kernels.pairwise_sqdist.ref import pairwise_sqdist_gather_ref
+from repro_torch.kernels.pairwise_sqdist.ref import (
+    pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P]
+_ARGTYPES_PRE = [_P, _P, _I64, _I64, _I64, _P, _P]
 
 
 def pairwise_sqdist_gather(x, qid, cand):
@@ -34,4 +36,25 @@ def pairwise_sqdist_gather(x, qid, cand):
                     x.data_ptr(), n, m, qid.data_ptr(), cand.data_ptr(), b, c,
                     out.data_ptr(), _build.stream_of(x))
     LAUNCHES["pairwise_sqdist_gather"] += 1
+    return out
+
+
+def pairwise_sqdist(q, c):
+    """(B, M) f32, (B, C, M) f32 -> (B, C) f32 ``||q[b] - c[b, j]||^2``."""
+    if _build.kernel_device(q, c) == "cpu":
+        return pairwise_sqdist_ref(q, c)
+    req = _build.require
+    req(q.dtype == torch.float32 and q.ndim == 2 and q.is_contiguous(),
+        "q must be a contiguous (B, M) float32 tensor")
+    b, m = q.shape
+    req(c.dtype == torch.float32 and c.ndim == 3 and c.is_contiguous()
+        and c.shape[0] == b and c.shape[2] == m,
+        "c must be a contiguous (B, C, M) float32 tensor")
+    cc = c.shape[1]
+    out = torch.empty((b, cc), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.call("repro_pairwise_sqdist", _ARGTYPES_PRE, q.data_ptr(),
+                    c.data_ptr(), b, cc, m, out.data_ptr(),
+                    _build.stream_of(q))
+    LAUNCHES["pairwise_sqdist"] += 1
     return out

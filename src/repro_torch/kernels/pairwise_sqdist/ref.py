@@ -1,7 +1,13 @@
-"""Plain PyTorch version of the gathered squared-distance kernel (B1)."""
+"""Plain PyTorch versions of the squared-distance kernels (B1, B6)."""
 from __future__ import annotations
 
 import torch
+
+
+def pairwise_sqdist_ref(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(B, M), (B, C, M) -> (B, C) f32 ``||q[b] - c[b, j]||^2``."""
+    diff = q.float()[:, None, :] - c.float()
+    return (diff * diff).sum(dim=-1)
 
 
 def pairwise_sqdist_gather_ref(x: torch.Tensor, qid: torch.Tensor,
@@ -11,7 +17,5 @@ def pairwise_sqdist_gather_ref(x: torch.Tensor, qid: torch.Tensor,
     Indices are clipped to [0, N); invalid slots are the caller's concern.
     """
     n = x.shape[0]
-    q = x[qid.long().clamp(0, n - 1)].float()
-    c = x[cand.long().clamp(0, n - 1)].float()
-    diff = q[:, None, :] - c
-    return (diff * diff).sum(dim=-1)
+    return pairwise_sqdist_ref(x[qid.long().clamp(0, n - 1)],
+                               x[cand.long().clamp(0, n - 1)])

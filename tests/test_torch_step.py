@@ -49,13 +49,15 @@ def _fields(st):
     return out
 
 
-def _problem(n=160, m=12, seed=0):
+def _problem(n=160, m=12, seed=0, **flags):
+    """Quantised blobs and one JAX-made state bridged to the port; ``flags``
+    are config fields that both packages share."""
     rng = np.random.default_rng(seed)
     centers = rng.integers(-12, 13, (4, m))
     x = centers[rng.integers(0, 4, n)] + rng.integers(-3, 4, (n, m))
     X = (x / 4.0).astype(np.float32)
-    jcfg = jf.FuncSNEConfig(n_points=n, dim_hd=m, backend="xla")
-    tcfg = tf.FuncSNEConfig(n_points=n, dim_hd=m)
+    jcfg = jf.FuncSNEConfig(n_points=n, dim_hd=m, backend="xla", **flags)
+    tcfg = tf.FuncSNEConfig(n_points=n, dim_hd=m, **flags)
     jhp = jf.default_hparams(n, perplexity=20.0)
     jst = jf.init_state(jax.random.PRNGKey(seed + 3), jnp.asarray(X), jcfg,
                         perplexity=jhp.perplexity)
@@ -67,7 +69,7 @@ def _problem(n=160, m=12, seed=0):
 def _assert_states_match(jst, tst):
     a, b = _fields(jst), convert.state_to_numpy(tst)
     for name in ("hd_idx", "ld_idx", "new_flag", "active", "step", "rng",
-                 "hd_d"):
+                 "hd_d", "rev_idx", "rev_step"):
         np.testing.assert_array_equal(b[name], a[name], err_msg=name)
     for name in ("Y", "vel", "ld_d"):
         np.testing.assert_allclose(
@@ -187,11 +189,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    for flag in ("gather_fused", "scatter_fused", "merge_fused", "cand_fused"):
-        with pytest.raises(NotImplementedError):
-            tf.FuncSNEConfig(n_points=10, dim_hd=3, **{flag: False})
+    """What is still unported raises: ``cand_fused=False`` (threefry) and
+    the fit/CLI options; the counter-RNG flag settings construct."""
     with pytest.raises(NotImplementedError):
-        tf.FuncSNEConfig(n_points=10, dim_hd=3, c_hd_rev=2)
+        tf.FuncSNEConfig(n_points=10, dim_hd=3, cand_fused=False)
+    with pytest.raises(NotImplementedError):
+        tf.FuncSNEConfig(n_points=10, dim_hd=3, c_hd_rev=2, cand_fused=False)
+    for kw in (dict(gather_fused=False), dict(scatter_fused=False),
+               dict(merge_fused=False), dict(c_hd_rev=2, rev_refresh=1)):
+        cfg = tf.FuncSNEConfig(n_points=10, dim_hd=3, **kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
     X = np.zeros((20, 3), np.float32)
     for kw in (dict(callback=print), dict(snapshot_every=5),
                dict(early_stop=0.1), dict(auto_rescale=0.1),
@@ -211,7 +218,8 @@ def test_state_bridge_round_trip_and_checks():
     for name in back:
         np.testing.assert_array_equal(back[name], a[name], err_msg=name)
         assert back[name].dtype == a[name].dtype, name
-    with pytest.raises(NotImplementedError):
+    # a reverse cache must have the config's width (c_hd_rev = 0 here)
+    with pytest.raises(ValueError, match="rev_idx"):
         convert.state_from_numpy(dict(a, rev_idx=np.zeros((40, 2), np.int32)),
                                  tcfg, "cpu")
     with pytest.raises(ValueError):
