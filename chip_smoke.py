@@ -22,14 +22,27 @@ dim_hd = 784, on an MNIST-shaped synthetic dataset, and checks it:
   (e) each kernel's time (CUDA events) beside its bound and its plain
       version's time, and a short profiler window of the step;
   (f) the flag paths (gather_fused=False, scatter_fused=False,
-      merge_fused=False, c_hd_rev=4), each from the main path's final
-      state: its kernels against their plain versions at its shapes, one
-      step through the kernels against one through the plain versions, then
-      F_ITERS steps with the launch counters set to 0 just before (its own
-      kernels launched, no other; Y finite; recall above RECALL_MIN and
-      above the recall of the state it started from; steps/s beside the
-      default path's from the same state); B6 also at init_state's C = 32
-      and at C = 14 of c_hd_rev = 4; and the times of B5-B7.
+      merge_fused=False, c_hd_rev=4, cand_fused=False), each from the main
+      path's final state: its kernels against their plain versions at its
+      shapes, one step through the kernels against one through the plain
+      versions, then F_ITERS steps with the launch counters set to 0 just
+      before (its own kernels launched, no other; Y finite; recall above
+      RECALL_MIN and above the recall of the state it started from; steps/s
+      beside the default path's from the same state); B6 also at
+      init_state's C = 32 and at C = 14 of c_hd_rev = 4; the times of B5-B7
+      and of B4 at FUnc-SNE's HD and LD-rescore shapes; and the cost of the
+      threefry draws of one cand_fused=False step;
+  (g) nearest-neighbour descent (``repro_torch.core.nnd``, ``NNDConfig()``)
+      on the same X: B4 at C = 16 against its plain version, one iteration
+      through the kernels against one through the plain versions, then
+      ``nnd(max_iter=NND_ITERS, tol=1e-3)`` with the launch counters set to
+      0 just before (B1 once, B4 once per iteration, nothing else; the
+      update fraction falls; recall above RECALL_MIN), iterations/s, the
+      recall after NND_SHORT iterations, and the time of B4 at NND's shape.
+
+Phase (b) also holds threefry's draws made on the card (randint at
+(70,000, 10) with spans 70,000 and 32, bernoulli, a fold_in/split chain)
+against the same draws made on the CPU, bit for bit.
 
 Any failed check raises, so the script exits non-zero.  The second-to-last
 line is the card's name and power limit; before it, one JSON line with the
@@ -51,10 +64,14 @@ import torch
 N, DIM = 70_000, 784
 ITERS, CHUNK = 500, 50
 F_ITERS = 100                  # steps of each flag path in phase (f)
+# most NND iterations in phase (g).  NND samples 16 candidates per row and
+# iteration, so at n = 70,000 its update fraction stays near 1 for the first
+# tens of iterations; phase (g) also prints the recall after NND_SHORT
+NND_ITERS, NND_SHORT = 150, 40
 RECALL_ROWS, AUC_ROWS = 2_000, 5_000
-# HD-list recall@32 after ITERS steps must exceed this.  The run is
-# deterministic; on an H100 it reached 0.5691, and the random initial lists
-# score about 32/70,000 = 0.0005 (both printed beside it)
+# HD-list recall@32 after ITERS steps (and after NND) must exceed this.  The
+# run is deterministic and prints its recall beside the random initial
+# lists' (about 32/70,000 = 0.0005)
 RECALL_MIN = 0.4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
@@ -117,8 +134,8 @@ class Recorder:
     """Ops that record each call as (entry point, args, kw), then run the
     kernel.
 
-    Calls are keyed by the entry point's name, with _hd / _ld for B1 and
-    B2 and the call's index for B7 (three calls a step)."""
+    Calls are keyed by the entry point's name, with _hd / _ld for B1, B2
+    and B4 and the call's index for B7 (three calls a step)."""
 
     def __init__(self, funcsne):
         self.calls = {}
@@ -127,7 +144,7 @@ class Recorder:
         def rec(name, fn):
             def f(*args, **kw):
                 key = name
-                if name == "knn_merge_cand":
+                if name in ("knn_merge_cand", "knn_merge"):
                     key += "_ld" if args[3] is None else "_hd"
                 elif name == "pairwise_sqdist_gather":
                     key += "_hd" if args[0].shape[1] > 2 else "_ld"
@@ -148,12 +165,13 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import kernels
-    from repro_torch.core import funcsne, knn
+    from repro_torch.core import funcsne, knn, nnd, threefry
     from repro_torch.core.quality import embedding_quality
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
-    from repro_torch.kernels.knn_merge.ops import knn_merge_cand
-    from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref
+    from repro_torch.kernels.knn_merge.ops import knn_merge, knn_merge_cand
+    from repro_torch.kernels.knn_merge.ref import (knn_merge_cand_ref,
+                                                   knn_merge_ref)
     from repro_torch.kernels.ne_forces.ops import (ne_forces,
                                                    ne_forces_gather,
                                                    ne_forces_scatter)
@@ -250,6 +268,34 @@ def main():
         f"bit-identical over two launches; max abs err {e3:.3e} "
         f"(tol {TOL_FORCE_REL} of each field's largest entry)")
 
+    # threefry on the card against the CPU (which the tests hold to
+    # jax.random): a key chain made on the card, and draws made on the card
+    # from a card key and from a host key
+    key_h = threefry.prng_key(0)
+    chain_h = threefry.split(threefry.fold_in(key_h, 12345), 4)
+    chain_d = threefry.split(threefry.fold_in(key_h.to(dev), 12345), 4)
+    check(chain_d.is_cuda and torch.equal(chain_d.cpu(), chain_h),
+          "threefry fold_in/split chain differs on the card")
+    for span in (N, 32):
+        want = threefry.randint(chain_h[1], (N, 10), 0, span)
+        for k in (chain_h[1], chain_d[1]):
+            got = threefry.randint(k, (N, 10), 0, span, device=dev)
+            check(got.is_cuda and torch.equal(got.cpu(), want),
+                  f"threefry randint span {span} differs on the card")
+    p_grid = torch.linspace(0.0, 1.0, N)
+    want = threefry.bernoulli(chain_h[2], p_grid)
+    for k in (chain_h[2], chain_d[2]):
+        got = threefry.bernoulli(k, p_grid.to(dev))
+        check(torch.equal(got.cpu(), want),
+              "threefry bernoulli differs on the card")
+    nd, nh = (threefry.normal(chain_d[3], (N, 2)).cpu(),
+              threefry.normal(chain_h[3], (N, 2)))
+    ulps = int((nd.view(torch.int32).long()
+                - nh.view(torch.int32).long()).abs().max())
+    log(f"[b] threefry on the card: fold_in/split chain, randint (N, 10) at "
+        f"spans {N} and 32, bernoulli (N,): bit-identical to the CPU; normal "
+        f"(N, 2) within {ulps} ulps of the CPU (reported, not checked)")
+
     # ---- (c) one full step, kernels vs plain versions -------------------
     st_k = funcsne.funcsne_step(cfg, stq, Xq, hp, ops=funcsne.KERNELS)
     st_p = funcsne.funcsne_step(cfg, stq, Xq, hp, ops=funcsne.PLAIN)
@@ -333,8 +379,7 @@ def main():
 
     # the final main-path state gives the timed inputs
     ids = torch.arange(N, dtype=torch.int32, device=dev)
-    cand = knn.init_knn_idx(torch.Generator().manual_seed(3), N, N, cfg.k_hd,
-                            device=dev)
+    cand = knn.init_knn_idx(threefry.prng_key(3), N, N, cfg.k_hd, device=dev)
     out_b = torch.empty((N, cfg.k_hd), device=dev)
     entry("pairwise_sqdist_gather", "src/repro_torch/csrc/pairwise_sqdist.cu",
           "src/repro/kernels/pairwise_sqdist/kernel.py:278",
@@ -455,9 +500,12 @@ def main():
         "merge_fused=False": (dict(merge_fused=False),
                               {"pairwise_sqdist_gather"} | b3),
         "c_hd_rev=4": (dict(c_hd_rev=4), b2 | b3),
+        "cand_fused=False": (dict(cand_fused=False),
+                             {"knn_merge_hd", "knn_merge_ld"} | b3),
         "default, again": ({}, b2 | b3),   # brackets the flag paths' times
     }
-    exact_ops = {"pairwise_sqdist_gather", "knn_merge_cand", "pairwise_sqdist"}
+    exact_ops = {"pairwise_sqdist_gather", "knn_merge_cand", "pairwise_sqdist",
+                 "knn_merge"}
 
     def flat(v):
         return [t for x in v for t in flat(x)] if isinstance(v, tuple) \
@@ -475,6 +523,14 @@ def main():
                 continue
             if op in exact_ops and quantised:
                 check(torch.equal(g, w), f"{key} not exact on quantised input")
+            elif op == "knn_merge" and w.dtype == torch.float32:
+                # distances; on the real X a near tie may swap two ids
+                fin = torch.isfinite(w)
+                check(torch.equal(torch.isfinite(g), fin),
+                      f"{key}: +inf slots differ")
+                rel = float(((g[fin] - w[fin]).abs()
+                             / w[fin].abs().clamp_min(1.0)).max())
+                check(rel <= TOL_SQDIST_REL, f"{key} relative error {rel}")
             elif op == "pairwise_sqdist":
                 rel = float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
                 check(rel <= TOL_SQDIST_REL, f"{key} relative error {rel}")
@@ -625,6 +681,129 @@ def main():
           nbytes(x5, q5, n5, c5, a5, *o5), 20.0 * n5.numel(),
           f_err["ne_forces_gather"],
           f_launch["scatter_fused=False"]["ne_forces_gather"], tag="[f]")
+
+    def b4_entry(name, call, err, count, tag):
+        """B4's time beside its bound: every input read once, every output
+        written once, 3 flops per column of each row that this call's data
+        makes it score (new candidates, and the current rows in rescore)."""
+        _, args, kw = call
+        x, qid, cur_idx, cur_d, cand = args
+        ca, cv = kw.get("cand_active"), kw.get("cur_valid")
+        valid = knn.dedup_candidates(qid, cur_idx, cand)
+        if ca is not None:
+            valid &= ca
+        scored = int(valid.sum()) + (0 if cv is None else int(cv.sum()))
+        outs = knn_merge_ref(*args, **kw)
+        entry(name, "src/repro_torch/csrc/knn_merge.cu",
+              "src/repro/kernels/knn_merge/kernel.py:173",
+              lambda: knn_merge(*args, **kw), lambda: knn_merge_ref(*args, **kw),
+              20, nbytes(x, qid, cur_idx, cur_d, cand, ca, cv, *outs),
+              3.0 * scored * x.shape[1], err, count, tag=tag)
+        log(f"    {name}: x {tuple(x.shape)} K={cur_idx.shape[1]} C="
+            f"{cand.shape[1]}, {scored} rows scored "
+            f"({float(valid.float().mean()):.3f} of candidates new)")
+
+    legacy = f_rec["cand_fused=False"].calls
+    for mode in ("hd", "ld"):
+        b4_entry(f"knn_merge_{mode}", legacy[f"knn_merge_{mode}"],
+                 f_err[f"knn_merge_{mode}"],
+                 f_launch["cand_fused=False"][f"knn_merge_{mode}"], "[f]")
+
+    # what the threefry draws of one cand_fused=False step cost on the card:
+    # the host key chain and gate, the HD candidates (behind the gate), the
+    # LD candidates and the negatives
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    p_h = torch.tensor(0.5)
+
+    def chain():
+        k = threefry.fold_in(st.rng.cpu(), int(st.step))
+        r4 = threefry.split(k, 4)
+        bool(threefry.bernoulli(r4[0], p_h))
+        return r4
+
+    r4 = chain()
+
+    def hd_draws():
+        r = threefry.split(r4[1], 5)
+        return (knn.sample_hops(r[0], st.hd_idx, st.hd_idx, ids, cfg.c_hd_non),
+                knn.sample_direct(r[1], st.ld_idx, cfg.c_hd_ld),
+                knn.sample_hops(r[2], st.ld_idx, st.ld_idx, ids,
+                                cfg.c_hd_ld_non),
+                knn.sample_uniform(r[3], N, N, cfg.c_hd_rand, device=dev))
+
+    def ld_neg_draws():
+        r = threefry.split(r4[2], 3)
+        return (knn.sample_hops(r[0], st.ld_idx, st.ld_idx, ids, cfg.c_ld_non),
+                knn.sample_direct(r[1], st.hd_idx, cfg.c_ld_hd),
+                knn.sample_uniform(r[2], N, N, cfg.c_ld_rand, device=dev),
+                knn.sample_uniform(r4[3], N, N, cfg.n_negatives, device=dev))
+    draw_ms = {"key chain + gate (host)": wall_ms(chain),
+               "HD candidates": wall_ms(hd_draws),
+               "LD candidates + negatives": wall_ms(ld_neg_draws)}
+    gate_share = f_launch["cand_fused=False"]["knn_merge_hd"] / F_ITERS
+    per_step = (draw_ms["key chain + gate (host)"]
+                + gate_share * draw_ms["HD candidates"]
+                + draw_ms["LD candidates + negatives"])
+    log("[f] threefry draws of a cand_fused=False step (wall ms, synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in draw_ms.items())
+        + f"; {per_step:.3f} ms per step with the gate firing on "
+        f"{gate_share:.2f} of steps")
+
+    # ---- (g) nearest-neighbour descent ------------------------------------
+    ncfg = nnd.NNDConfig()
+    nkey = threefry.prng_key(0)
+    r0 = threefry.fold_in(nkey, 0)
+    recq, recr = Recorder(funcsne), Recorder(funcsne)
+    idx_q, d_q = nnd.nnd_init(nkey, Xq, ncfg, device=dev, ops=recq.ops)
+    nnd.nnd_step(r0, Xq, idx_q, d_q, ncfg, device=dev, ops=recq.ops)
+    idx_r, d_r = nnd.nnd_init(nkey, X, ncfg, device=dev, ops=recr.ops)
+    nnd.nnd_step(r0, X, idx_r, d_r, ncfg, device=dev, ops=recr.ops)
+    check(set(recq.calls) == {"pairwise_sqdist_gather_hd", "knn_merge_hd"},
+          f"NND calls {set(recq.calls)}")
+    for key, call in recq.calls.items():
+        held(key, *call, True)
+    g_err = held("knn_merge_hd", *recr.calls["knn_merge_hd"], False)
+    out_k = nnd.nnd_step(r0, Xq, idx_q, d_q, ncfg, device=dev,
+                         ops=funcsne.KERNELS)
+    out_p = nnd.nnd_step(r0, Xq, idx_q, d_q, ncfg, device=dev,
+                         ops=funcsne.PLAIN)
+    for g, w, name in zip(out_k, out_p, ("idx", "d", "update fraction")):
+        check(torch.equal(g, w), f"NND step {name} differs, kernels vs plain")
+    log(f"[g] NND: B1 (C = {ncfg.k}) and B4 (C = "
+        f"{recq.calls['knn_merge_hd'][1][4].shape[1]}) exact on quantised X, "
+        f"B4 distances within {TOL_SQDIST_REL} on the real X; one iteration "
+        f"kernels vs plain: idx/d/update fraction exact (fraction "
+        f"{float(out_k[2]):.4f})")
+    del out_k, out_p, idx_q, d_q, recq
+
+    idx_s, _, hist_s = nnd.nnd(X, ncfg, nkey, max_iter=NND_SHORT, tol=1e-3,
+                               device=dev)
+    rec_s = recall(idx_s)
+    del idx_s
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx_n, _, hist = nnd.nnd(X, ncfg, nkey, max_iter=NND_ITERS, tol=1e-3,
+                             device=dev)
+    torch.cuda.synchronize()
+    t_nnd = time.perf_counter() - t0
+    launches_g = dict(kernels.LAUNCHES)
+    want_g = {"pairwise_sqdist_gather": 1, "knn_merge_hd": len(hist)}
+    check(launches_g == {k: want_g.get(k, 0) for k in launches_g},
+          f"NND launches {launches_g}, expected {want_g}")
+    check(hist[-1] < hist[0], f"NND update fraction did not fall: {hist}")
+    check(hist[:len(hist_s)] == hist_s, "NND histories of one key differ")
+    rec_g = recall(idx_n)
+    check(rec_g > RECALL_MIN, f"NND recall {rec_g} <= {RECALL_MIN}")
+    log(f"[g] NND: {len(hist)} iterations in {t_nnd:.2f}s = "
+        f"{len(hist) / t_nnd:.1f} iterations/s (init included); launches "
+        f"{ {k: v for k, v in launches_g.items() if v} }; HD recall@{ncfg.k} "
+        f"{rec_g:.4f} on the same {RECALL_ROWS} rows ({rec_s:.4f} after "
+        f"{len(hist_s)} iterations; FUnc-SNE after {ITERS} steps: "
+        f"{rec1:.4f}); update fractions "
+        + " ".join(f"{h:.4f}" for h in hist))
+    b4_entry("knn_merge_nnd", recr.calls["knn_merge_hd"], g_err,
+             launches_g["knn_merge_hd"], "[g]")
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 
     print(json.dumps({"kernels": out}), flush=True)

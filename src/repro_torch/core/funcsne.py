@@ -1,8 +1,7 @@
-"""FUnc-SNE's single-device main path (port of ``repro.core.funcsne``).
+"""FUnc-SNE's single-device path (port of ``repro.core.funcsne``).
 
 One ``funcsne_step`` does, in the JAX package's order:
-  1. the counter-RNG gate: refine the HD lists with probability
-     0.05 + 0.95 E[N_new/N];
+  1. the gate: refine the HD lists with probability 0.05 + 0.95 E[N_new/N];
   2. HD refinement (``_hd_refine``): the candidate-fused merge kernel on X;
   3. the sigma refresh every ``sigma_refresh_every`` steps;
   4. LD refinement (``_ld_refine``): the same kernel on Y, current rows
@@ -10,22 +9,27 @@ One ``funcsne_step`` does, in the JAX package's order:
   5. forces (``_forces_update``): the scatter-fused force kernel, the Z
      estimate and the gains/momentum update.
 
-Every setting of the JAX config that draws from the counter RNG runs:
-the default fused path (kernels B1-B3), ``gather_fused=False`` (B6 on
-pre-gathered rows, B7 per force segment), ``scatter_fused=False`` (B5 and
-an ``index_add_`` symmetrisation), ``merge_fused=False`` (B1 and the plain
-dedup/merge) and reverse-edge candidates (``c_hd_rev > 0``, the table
-rebuilt every ``rev_refresh`` steps).  ``cand_fused=False`` draws from
-threefry, which the port lacks, and raises ``NotImplementedError``.
+Every setting of the JAX config runs on one device: the default fused path
+(kernels B1-B3), ``gather_fused=False`` (B6 on pre-gathered rows, B7 per
+force segment), ``scatter_fused=False`` (B5 and an ``index_add_``
+symmetrisation), ``merge_fused=False`` (B1 and the plain dedup/merge),
+reverse-edge candidates (``c_hd_rev > 0``, the table rebuilt every
+``rev_refresh`` steps) and ``cand_fused=False``, where the candidates,
+negatives, gate and reverse-table fill come from threefry and the merge is
+B4 on the precomputed candidate block.
+
+With ``cand_fused=True`` every draw inside a step comes from the counter
+hash keyed on the state's key words; with ``cand_fused=False`` from
+``core.threefry``, which reproduces ``jax.random``.  Either way the port
+and the JAX package draw the same candidates and negatives from the same
+state, and ``init_state(seed=s)`` draws the JAX package's start for
+``PRNGKey(s)``: the same lists and key, Y within ``normal``'s tolerance.
 
 PyTorch runs eagerly, so the chunk runner (``make_chunked_step``) is a
 Python loop over steps; the gate's branch and the reverse-table cadence are
-one host sync per step.
-Every draw inside a step comes from the counter hash keyed on the state's
-key words, so the port and the JAX package draw the same candidates and
-negatives from the same state.  ``init_state`` draws its random start
-from a ``torch.Generator`` and so differs from the JAX package's threefry
-start; parity tests start both from one state (``core.convert``).
+one host sync per step.  On the threefry path that sync also fetches the
+key words, so the scalar key chain (``fold_in``, ``split``, the gate's
+``bernoulli``) runs on the host and only the (n, c) draws on the device.
 """
 from __future__ import annotations
 
@@ -36,9 +40,10 @@ import torch
 
 from repro_torch.core import affinities
 from repro_torch.core import knn
+from repro_torch.core import threefry
 from repro_torch.core.knn import SENTINEL
-from repro_torch.kernels.knn_merge.ops import knn_merge_cand
-from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref
+from repro_torch.kernels.knn_merge.ops import knn_merge, knn_merge_cand
+from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref, knn_merge_ref
 from repro_torch.kernels.ne_forces.ops import (ne_forces, ne_forces_gather,
                                                ne_forces_scatter)
 from repro_torch.kernels.ne_forces.ref import (ne_forces_gather_ref,
@@ -81,11 +86,6 @@ class FuncSNEConfig:
     cand_fused: bool = True
     rev_refresh: int = 10         # steps between reverse-table rebuilds
 
-    def __post_init__(self):
-        if not self.cand_fused:
-            raise NotImplementedError(
-                "cand_fused=False draws from threefry, which is not ported")
-
 
 class HParams(NamedTuple):
     """Hyperparameters as 0-dim float32 tensors on the state's device."""
@@ -122,6 +122,7 @@ class Ops(NamedTuple):
     pairwise_sqdist_gather: Callable    # B1
     knn_merge_cand: Callable            # B2
     ne_forces_scatter: Callable         # B3
+    knn_merge: Callable                 # B4
     ne_forces_gather: Callable          # B5
     pairwise_sqdist: Callable           # B6
     ne_forces: Callable                 # B7
@@ -131,10 +132,10 @@ class Ops(NamedTuple):
 # CUDA tensors) -- and the plain versions alone, which run on either
 # device and are what the kernels are compared with on the card
 KERNELS = Ops(pairwise_sqdist_gather, knn_merge_cand, ne_forces_scatter,
-              ne_forces_gather, pairwise_sqdist, ne_forces)
+              knn_merge, ne_forces_gather, pairwise_sqdist, ne_forces)
 PLAIN = Ops(pairwise_sqdist_gather_ref, knn_merge_cand_ref,
-            ne_forces_scatter_ref, ne_forces_gather_ref, pairwise_sqdist_ref,
-            ne_forces_ref)
+            ne_forces_scatter_ref, knn_merge_ref, ne_forces_gather_ref,
+            pairwise_sqdist_ref, ne_forces_ref)
 
 # counter-RNG stream tags: per-step salts are hash3(base, step, TAG)
 _TAG_GATE, _TAG_HD, _TAG_LD, _TAG_NEG, _TAG_REV = 1, 2, 3, 4, 5
@@ -185,51 +186,83 @@ def _row_sqdist(cfg: FuncSNEConfig, X, ids, cand, ops: Ops):
     return ops.pairwise_sqdist(X[ids.long()], _take(X, cand))
 
 
-def _rev_update(cfg: FuncSNEConfig, st: FuncSNEState, base):
-    """Rebuild the cached reverse-edge table from the current HD lists.
+def _rev_update(cfg: FuncSNEConfig, st: FuncSNEState, fill):
+    """Rebuild the cached reverse-edge table from the current HD lists,
+    padding with ``fill`` (n, c_hd_rev).
 
     The caller decides, from ``rev_step`` read on the host, that
     ``rev_refresh`` steps have passed since the last rebuild; the cadence
     counts from that rebuild because refinement itself runs behind the
     stochastic gate.
     """
-    n = cfg.n_points
-    fill = knn.counter_fill(knn.hash3(base, st.step, _TAG_REV), n,
-                            cfg.c_hd_rev)
-    rev = knn.reverse_neighbors(st.hd_idx, n, cfg.c_hd_rev, fill=fill)
+    rev = knn.reverse_neighbors(st.hd_idx, cfg.n_points, cfg.c_hd_rev,
+                                fill=fill)
     return st._replace(rev_idx=rev, rev_step=st.step.clone())
 
 
-def _hd_refine(cfg: FuncSNEConfig, st: FuncSNEState, X, base, ops: Ops,
+def _hd_refine(cfg: FuncSNEConfig, st: FuncSNEState, X, rng, ops: Ops,
                rev_due: bool = False):
-    """HD refinement; ``rev_due`` rebuilds the reverse table first."""
+    """HD refinement; ``rng`` is the base salt (counter RNG) or the step's
+    threefry key, and ``rev_due`` rebuilds the reverse table first."""
     n = cfg.n_points
     ids = _ids(st)
-    salt = knn.hash3(base, st.step, _TAG_HD)
-    rev = None
-    if cfg.c_hd_rev:
-        if rev_due:
-            st = _rev_update(cfg, st, base)
-        rev = st.rev_idx
-    sources = (("two_hop", 0, 0, cfg.c_hd_non),
-               ("one_hop", 1, cfg.c_hd_ld),
-               ("two_hop", 1, 1, cfg.c_hd_ld_non),
-               ("uniform", cfg.c_hd_rand),
-               ("extra", cfg.c_hd_rev))
-    firsts, seconds = (st.hd_idx, st.ld_idx), (st.hd_idx, st.ld_idx)
-    if cfg.merge_fused and cfg.gather_fused:
-        new_idx, new_d, improved = ops.knn_merge_cand(
-            X, ids, st.hd_idx, st.hd_d, salt=salt, sources=sources,
-            first_tables=firsts, second_tables=seconds, extra=rev,
-            active=st.active)
-    else:
+    dev = ids.device
+    use_kernel = cfg.merge_fused and cfg.gather_fused
+    if cfg.cand_fused:
+        salt = knn.hash3(rng, st.step, _TAG_HD)
+        if cfg.c_hd_rev and rev_due:
+            st = _rev_update(cfg, st, knn.counter_fill(
+                knn.hash3(rng, st.step, _TAG_REV), n, cfg.c_hd_rev))
+        rev = st.rev_idx if cfg.c_hd_rev else None
+        sources = (("two_hop", 0, 0, cfg.c_hd_non),
+                   ("one_hop", 1, cfg.c_hd_ld),
+                   ("two_hop", 1, 1, cfg.c_hd_ld_non),
+                   ("uniform", cfg.c_hd_rand),
+                   ("extra", cfg.c_hd_rev))
+        firsts, seconds = (st.hd_idx, st.ld_idx), (st.hd_idx, st.ld_idx)
+        if use_kernel:
+            new_idx, new_d, improved = ops.knn_merge_cand(
+                X, ids, st.hd_idx, st.hd_d, salt=salt, sources=sources,
+                first_tables=firsts, second_tables=seconds, extra=rev,
+                active=st.active)
+            return _hd_merged(cfg, st, new_idx, new_d, improved)
         cand = knn.counter_candidates(salt, ids, sources, firsts, seconds,
                                       n_total=n, extra=rev)
-        valid = knn.dedup_candidates(ids, st.hd_idx, cand)
-        valid &= _take(st.active, cand)
+    else:
+        r = threefry.split(rng, 5)
+        parts = []
+        if cfg.c_hd_non:
+            parts.append(knn.sample_hops(r[0], st.hd_idx, st.hd_idx, ids,
+                                         cfg.c_hd_non))
+        if cfg.c_hd_ld:
+            parts.append(knn.sample_direct(r[1], st.ld_idx, cfg.c_hd_ld))
+        if cfg.c_hd_ld_non:
+            parts.append(knn.sample_hops(r[2], st.ld_idx, st.ld_idx, ids,
+                                         cfg.c_hd_ld_non))
+        if cfg.c_hd_rand:
+            parts.append(knn.sample_uniform(r[3], n, n, cfg.c_hd_rand,
+                                            device=dev))
+        if cfg.c_hd_rev:
+            if rev_due:
+                st = _rev_update(cfg, st, knn.sample_uniform(
+                    r[4], n, n, cfg.c_hd_rev, device=dev))
+            parts.append(st.rev_idx)
+        cand = torch.cat(parts, dim=1)
+    cand_active = _take(st.active, cand)
+    if use_kernel:
+        new_idx, new_d, improved = ops.knn_merge(
+            X, ids, st.hd_idx, st.hd_d, cand, cand_active=cand_active)
+    else:
+        valid = knn.dedup_candidates(ids, st.hd_idx, cand) & cand_active
         cand_d = _row_sqdist(cfg, X, ids, cand, ops)
         new_idx, new_d, improved = knn.merge_knn(st.hd_idx, st.hd_d, cand,
                                                  cand_d, valid)
+    return _hd_merged(cfg, st, new_idx, new_d, improved)
+
+
+def _hd_merged(cfg: FuncSNEConfig, st: FuncSNEState, new_idx, new_d,
+               improved):
+    """The HD merge's result into the state, with the E[N_new/N] EMA."""
     n_act = st.active.float().sum().clamp_min(1.0)
     frac = (improved & st.active).float().sum() / n_act
     ema = cfg.ema_decay * st.ema_new_frac + (1.0 - cfg.ema_decay) * frac
@@ -246,25 +279,45 @@ def _sigma_refresh(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams):
                        new_flag=torch.zeros_like(st.new_flag))
 
 
-def _ld_refine(cfg: FuncSNEConfig, st: FuncSNEState, base, ops: Ops):
+def _ld_refine(cfg: FuncSNEConfig, st: FuncSNEState, rng, ops: Ops):
     n = cfg.n_points
     ids = _ids(st)
-    salt = knn.hash3(base, st.step, _TAG_LD)
-    sources = (("two_hop", 0, 0, cfg.c_ld_non),
-               ("one_hop", 1, cfg.c_ld_hd),
-               ("uniform", cfg.c_ld_rand))
-    firsts, seconds = (st.ld_idx, st.hd_idx), (st.ld_idx,)
+    use_kernel = cfg.merge_fused and cfg.gather_fused
     cur_valid = (st.ld_idx != SENTINEL) & _take(st.active, st.ld_idx)
-    if cfg.merge_fused and cfg.gather_fused:
-        new_idx, new_d, _ = ops.knn_merge_cand(
-            st.Y, ids, st.ld_idx, None, salt=salt, sources=sources,
-            first_tables=firsts, second_tables=seconds, active=st.active,
-            cur_valid=cur_valid)
+    if cfg.cand_fused:
+        salt = knn.hash3(rng, st.step, _TAG_LD)
+        sources = (("two_hop", 0, 0, cfg.c_ld_non),
+                   ("one_hop", 1, cfg.c_ld_hd),
+                   ("uniform", cfg.c_ld_rand))
+        firsts, seconds = (st.ld_idx, st.hd_idx), (st.ld_idx,)
+        if use_kernel:
+            new_idx, new_d, _ = ops.knn_merge_cand(
+                st.Y, ids, st.ld_idx, None, salt=salt, sources=sources,
+                first_tables=firsts, second_tables=seconds, active=st.active,
+                cur_valid=cur_valid)
+            return st._replace(ld_idx=new_idx, ld_d=new_d)
+        cand = knn.counter_candidates(salt, ids, sources, firsts, seconds,
+                                      n_total=n)
+    else:
+        r = threefry.split(rng, 3)
+        parts = []
+        if cfg.c_ld_non:
+            parts.append(knn.sample_hops(r[0], st.ld_idx, st.ld_idx, ids,
+                                         cfg.c_ld_non))
+        if cfg.c_ld_hd:
+            # HD neighbours: stable LD candidates unaffected by the motion
+            parts.append(knn.sample_direct(r[1], st.hd_idx, cfg.c_ld_hd))
+        if cfg.c_ld_rand:
+            parts.append(knn.sample_uniform(r[2], n, n, cfg.c_ld_rand,
+                                            device=ids.device))
+        cand = torch.cat(parts, dim=1)
+    cand_active = _take(st.active, cand)
+    if use_kernel:
+        new_idx, new_d, _ = ops.knn_merge(st.Y, ids, st.ld_idx, None, cand,
+                                          cand_active=cand_active,
+                                          cur_valid=cur_valid)
         return st._replace(ld_idx=new_idx, ld_d=new_d)
-    cand = knn.counter_candidates(salt, ids, sources, firsts, seconds,
-                                  n_total=n)
-    valid = knn.dedup_candidates(ids, st.ld_idx, cand)
-    valid &= _take(st.active, cand)
+    valid = knn.dedup_candidates(ids, st.ld_idx, cand) & cand_active
     # re-score the current rows too: the embedding moved since the merge
     k = st.ld_idx.shape[1]
     if cfg.gather_fused:
@@ -280,7 +333,7 @@ def _ld_refine(cfg: FuncSNEConfig, st: FuncSNEState, base, ops: Ops):
     return st._replace(ld_idx=new_idx, ld_d=new_d)
 
 
-def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, base,
+def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
                    ops: Ops):
     """Forces, the Z estimate and the gains/momentum update.
 
@@ -314,10 +367,14 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, base,
     have_neg = cfg.n_negatives > 0
     if have_neg:
         # far field by negative sampling (third term of Eq. 6)
-        salt = knn.hash3(base, st.step, _TAG_NEG)
-        draws = torch.arange(cfg.n_negatives, dtype=torch.int32,
-                             device=ids.device)[None, :]
-        neg = knn.counter_randint(salt, ids[:, None], draws, n)
+        if cfg.cand_fused:
+            salt = knn.hash3(rng, st.step, _TAG_NEG)
+            draws = torch.arange(cfg.n_negatives, dtype=torch.int32,
+                                 device=ids.device)[None, :]
+            neg = knn.counter_randint(salt, ids[:, None], draws, n)
+        else:
+            neg = knn.sample_uniform(rng, n, n, cfg.n_negatives,
+                                     device=ids.device)
         neg = torch.where(neg == ids[:, None], (neg + 1) % n, neg)
         nbr.append(neg)
         coef.append((_take(st.active, neg) & act_l[:, None]).float())
@@ -391,24 +448,36 @@ def funcsne_step(cfg: FuncSNEConfig, st: FuncSNEState, X, hp: HParams,
     ``ops`` selects the kernels (default) or the plain versions; the state
     and ``X`` stay on their device either way.
     """
-    base = knn.key_salt(st.rng)
     # stochastic HD refinement: p = 0.05 + 0.95 E[N_new/N]  (paper Sec. 3)
     p_ref = cfg.min_refresh_prob \
         + (1.0 - cfg.min_refresh_prob) * st.ema_new_frac
-    u = knn.counter_uniform01(knn.hash3(base, st.step, _TAG_GATE))
-    do_hd, step, rev_step = torch.stack([
-        (u < p_ref.clamp(0.0, 1.0)).int(), st.step.int(),
-        st.rev_step.int()]).tolist()
+    p_ref = p_ref.clamp(0.0, 1.0)
+    if cfg.cand_fused:
+        base = knn.key_salt(st.rng)
+        r_hd = r_ld = r_force = base
+        u = knn.counter_uniform01(knn.hash3(base, st.step, _TAG_GATE))
+        do_hd, step, rev_step = torch.stack([
+            (u < p_ref).int(), st.step.int(), st.rev_step.int()]).tolist()
+    else:
+        # the one host sync: key words, step, cadence and p_ref's bits; the
+        # key chain and the gate's draw then run on the host
+        k0, k1, step, rev_step, p_bits = torch.cat([st.rng, torch.stack([
+            st.step.long(), st.rev_step.long(),
+            p_ref.view(torch.int32).long()])]).tolist()
+        rng = threefry.fold_in(torch.tensor([k0, k1]), step)
+        r_gate, r_hd, r_ld, r_force = threefry.split(rng, 4)
+        p_host = torch.tensor(p_bits, dtype=torch.int32).view(torch.float32)
+        do_hd = bool(threefry.bernoulli(r_gate, p_host))
     if do_hd:
-        st = _hd_refine(cfg, st, X, base, ops,
+        st = _hd_refine(cfg, st, X, r_hd, ops,
                         rev_due=step - rev_step >= cfg.rev_refresh)
     # The JAX step also requires any(new_flag); without a flag the refresh
     # changes nothing (beta is kept where no flag is set, and the cleared
     # flags are already clear), so that host sync is skipped here.
     if step % cfg.sigma_refresh_every == 0:
         st = _sigma_refresh(cfg, st, hp)
-    st = _ld_refine(cfg, st, base, ops)
-    st = _forces_update(cfg, st, hp, base, ops)
+    st = _ld_refine(cfg, st, r_ld, ops)
+    st = _forces_update(cfg, st, hp, r_force, ops)
     return st._replace(step=st.step + 1)
 
 
@@ -416,11 +485,13 @@ def funcsne_step(cfg: FuncSNEConfig, st: FuncSNEState, X, hp: HParams,
 # Initialisation
 
 
-def pca_directions(X, d: int, n_iter: int = 24, generator=None):
-    """Top-d PCA directions via subspace (power) iteration."""
+def pca_directions(X, d: int, n_iter: int = 24, rng=None):
+    """Top-d PCA directions via subspace (power) iteration from the
+    threefry draw ``normal(rng, (M, d))`` (``rng=None``: ``PRNGKey(0)``)."""
+    if rng is None:
+        rng = threefry.prng_key(0)
     Xc = X - X.mean(dim=0, keepdim=True)
-    W = torch.randn((X.shape[1], d), generator=generator,
-                    dtype=X.dtype).to(X.device)
+    W = threefry.normal(rng, (X.shape[1], d), device=X.device)
     q = torch.linalg.qr(W)[0]
     for _ in range(n_iter):
         q = torch.linalg.qr(Xc.T @ (Xc @ q))[0]
@@ -456,46 +527,47 @@ def init_state(X, cfg: FuncSNEConfig, *, seed: int = 0, init: str = "pca",
                device="cuda", ops: Ops = KERNELS) -> FuncSNEState:
     """Initial state on ``device`` (CUDA unless the caller asks for CPU).
 
-    The random start (PCA probe or random Y, initial lists, the state's
-    key words) is drawn from a CPU ``torch.Generator`` seeded with
-    ``seed``, so a seed gives the same start on every device.
+    The random start is drawn as the JAX ``init_state(PRNGKey(seed), ...)``
+    draws it: ``split(PRNGKey(seed), 4)`` gives the PCA probe or random Y
+    (``r_y``), the initial HD and LD lists (``r_hd``, ``r_ld``) and the
+    state's key (``r_state``).  The lists and key equal the JAX state's;
+    Y carries ``threefry.normal``'s tolerance.
     """
     dev = resolve_device(device)
     X = torch.as_tensor(X, dtype=torch.float32).to(dev).contiguous()
     n, d = cfg.n_points, cfg.dim_ld
     if validate:
         validate_inputs(X, cfg)
-    g = torch.Generator().manual_seed(seed)
+    r_y, r_hd, r_ld, r_state = threefry.split(threefry.prng_key(seed), 4)
     if Y0 is not None:
         Y = torch.as_tensor(Y0, dtype=torch.float32).to(dev)
     elif init == "pca":
-        W = pca_directions(X, d, generator=g)
+        W = pca_directions(X, d, rng=r_y)
         Y = (X - X.mean(dim=0)) @ W
         Y = Y / Y.std(correction=0).clamp_min(1e-8) * 1e-2
     else:
-        Y = (torch.randn((n, d), generator=g) * 1e-2).to(dev)
+        Y = threefry.normal(r_y, (n, d), device=dev) * 1e-2
     Y = Y.to(torch.float32).contiguous()
     if active is None:
         active = torch.ones((n,), dtype=torch.bool, device=dev)
     active = torch.as_tensor(active, dtype=torch.bool).to(dev)
 
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    hd_idx = knn.init_knn_idx(g, n, n, cfg.k_hd, device=dev)
+    hd_idx = knn.init_knn_idx(r_hd, n, n, cfg.k_hd, device=dev)
     hd_d = _row_sqdist(cfg, X, ids, hd_idx, ops)
     hd_d = torch.where(_take(active, hd_idx) & active[:, None], hd_d,
                        torch.inf)
     hd_d, order = torch.sort(hd_d, dim=1, stable=True)
     hd_idx = torch.gather(hd_idx, 1, order)
 
-    ld_idx = knn.init_knn_idx(g, n, n, cfg.k_ld, device=dev)
+    ld_idx = knn.init_knn_idx(r_ld, n, n, cfg.k_ld, device=dev)
     if cfg.gather_fused:
         ld_d = ops.pairwise_sqdist_gather(Y, ids, ld_idx)
     else:
         ld_d = ((Y[:, None, :] - _take(Y, ld_idx)) ** 2).sum(-1)
     ld_d = torch.where(_take(active, ld_idx) & active[:, None], ld_d,
                        torch.inf)
-    rng = torch.randint(0, 2 ** 32, (2,), generator=g,
-                        dtype=torch.int64).to(dev)
+    rng = r_state.to(dev)
 
     beta = affinities.solve_beta(hd_d, perplexity, n_iter=24)
 

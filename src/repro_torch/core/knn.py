@@ -1,4 +1,4 @@
-"""Counter-RNG sampling and neighbour-list primitives (port of ``repro.core.knn``).
+"""Sampling and neighbour-list primitives (port of ``repro.core.knn``).
 
 Neighbour sets are fixed-width sorted arrays (idx, d2) of shape (n, K),
 ascending in d2; invalid slots hold (SENTINEL, +inf).
@@ -10,10 +10,16 @@ that hold the 32-bit pattern as a value in [0, 2^32): every shift is then
 logical, and every product is split into 16-bit halves so that it stays
 below 2^49 before it is masked back to 32 bits.  Public functions return
 int32 tensors, as the JAX functions do.
+
+The threefry samplers (``init_knn_idx``, ``sample_hops``,
+``sample_direct``, ``sample_uniform`` and ``reverse_neighbors(fill_rng=)``)
+draw through ``core.threefry``, so they reproduce ``jax.random`` exactly.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import threefry
 
 SENTINEL = 2 ** 31 - 1  # invalid-slot index marker (int32 max)
 
@@ -155,18 +161,24 @@ def counter_fill(salt, n: int, r: int) -> torch.Tensor:
     return counter_randint(salt, rows, draws, n)
 
 
-def reverse_neighbors(idx, n_total: int, r: int, *, fill):
+def reverse_neighbors(idx, n_total: int, r: int, fill_rng=None, fill=None):
     """Up to ``r`` points that list each point as a neighbour.
 
     One stable sort over the n*K directed edges groups them by target; row
     i takes the first ``r`` sources of its group in source order, and the
-    slots it cannot fill come from the same slots of ``fill`` (n_total, r).
-    The counterpart of ``repro.core.knn.reverse_neighbors(..., fill=)``:
-    ``jnp.argsort`` is stable and ``jnp.searchsorted`` left-sided.
-    Returns (n_total, r) int32.
+    slots it cannot fill come from the same slots of a uniform table
+    (n_total, r): ``fill`` itself (the counter-RNG path), or
+    ``sample_uniform(fill_rng, n_total, n_total, r)`` (threefry).  Pass
+    ``fill_rng`` xor ``fill``.  The counterpart of
+    ``repro.core.knn.reverse_neighbors``: ``jnp.argsort`` is stable and
+    ``jnp.searchsorted`` left-sided.  Returns (n_total, r) int32.
     """
+    if (fill is None) == (fill_rng is None):
+        raise ValueError("pass fill_rng xor fill")
     n, k = idx.shape
     dev = idx.device
+    if fill is None:
+        fill = sample_uniform(fill_rng, n_total, n_total, r, device=dev)
     tgt = idx.reshape(-1)
     src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(k)
     tgt_s, order = torch.sort(tgt, stable=True)
@@ -181,22 +193,56 @@ def reverse_neighbors(idx, n_total: int, r: int, *, fill):
     return torch.where(valid, gathered, fill.to(torch.int32))
 
 
-def init_knn_idx(generator: torch.Generator, n_rows: int, n_total: int,
-                 k: int, row_offset: int = 0, device="cpu"):
+def init_knn_idx(rng, n_rows: int, n_total: int, k: int,
+                 row_offset: int = 0, device=None):
     """Random initial neighbour sets: (random base + 0..k-1) mod n.
 
-    Distinct within a row and never the row itself.  The base is drawn on
-    ``generator`` (a CPU generator, so a seed gives the same lists on every
-    device) and the result is moved to ``device``.
+    Distinct within a row and never the row itself.  The base is the
+    threefry draw ``randint(rng, (n_rows, 1), 0, n_total)`` of the JAX
+    package, made on ``device`` (default: the key's), so a key gives the
+    JAX package's lists exactly.
     """
     if k > n_total - 1:
         raise ValueError(f"k={k} needs at least k+1 points, got {n_total}")
-    base = torch.randint(0, n_total, (n_rows, 1), generator=generator,
-                         dtype=torch.int64)
-    rows = row_offset + torch.arange(n_rows, dtype=torch.int64)[:, None]
-    offs = 1 + (base + torch.arange(k, dtype=torch.int64)[None, :]) \
+    base = threefry.randint(rng, (n_rows, 1), 0, n_total, device=device)
+    dev = base.device
+    rows = row_offset + torch.arange(n_rows, dtype=torch.int32,
+                                     device=dev)[:, None]
+    offs = 1 + (base + torch.arange(k, dtype=torch.int32, device=dev)[None, :]) \
         % (n_total - 1)
-    return ((rows + offs) % n_total).to(torch.int32).to(device)
+    return ((rows + offs) % n_total).to(torch.int32)
+
+
+def sample_hops(rng, first_idx, second_idx, rows, n_samples: int):
+    """Two-hop candidates ``second_idx[first_idx[i, a], b]`` for threefry
+    draws (a, b).
+
+    ``first_idx`` (n, K1) holds the local rows' lists, ``second_idx``
+    (N, K2) the global table.  A SENTINEL mid becomes ``rows % N`` and the
+    mid is clipped before the second gather, as in the JAX sampler.
+    Returns (n, n_samples) int32.
+    """
+    n, k1 = first_idx.shape
+    n2, k2 = second_idx.shape
+    ra, rb = threefry.split(rng, 2)
+    dev = first_idx.device
+    a = threefry.randint(ra, (n, n_samples), 0, k1, device=dev)
+    b = threefry.randint(rb, (n, n_samples), 0, k2, device=dev)
+    mid = torch.gather(first_idx, 1, a.long())
+    mid = torch.where(mid == SENTINEL, rows[:, None] % n2, mid)
+    return second_idx[mid.long().clamp(0, n2 - 1), b.long()]
+
+
+def sample_direct(rng, idx, n_samples: int):
+    """One-hop candidates: threefry-drawn entries of the row's own list."""
+    n, k = idx.shape
+    a = threefry.randint(rng, (n, n_samples), 0, k, device=idx.device)
+    return torch.gather(idx, 1, a.long())
+
+
+def sample_uniform(rng, n: int, n_total: int, n_samples: int, device=None):
+    """(n, n_samples) uniform int32 ids in [0, n_total) from threefry."""
+    return threefry.randint(rng, (n, n_samples), 0, n_total, device=device)
 
 
 def dedup_candidates(rows, cur_idx, cand_idx):

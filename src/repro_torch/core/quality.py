@@ -51,6 +51,13 @@ def rnx_auc(rnx):
     return (rnx * w).sum() / w.sum()
 
 
+def knn_set_quality(est_idx, X, kmax: int = None):
+    """AUC of R_NX comparing estimated HD KNN sets to the exact sets."""
+    k = est_idx.shape[1] if kmax is None else kmax
+    true_idx, _ = exact_knn(X, k)
+    return rnx_auc(rnx_curve(est_idx[:, :k], true_idx, X.shape[0]))
+
+
 def embedding_quality(X, Y, kmax: int = 64):
     """AUC of R_NX comparing LD neighbourhoods to HD neighbourhoods."""
     kmax = min(kmax, X.shape[0] - 2)

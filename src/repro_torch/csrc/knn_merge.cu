@@ -1,23 +1,39 @@
-// B2: candidate-fused neighbour refinement -- generate, score, dedup and
-// merge in one launch.
+// B2 and B4: neighbour refinement -- score, dedup and merge in one launch,
+// B2 generating its candidates in the kernel, B4 reading a precomputed
+// block.  One kernel body serves both (knn_merge_kernel<kPre>); the
+// candidate source and the validity source are its compile-time choice.
 //
-// Replaces: src/repro/kernels/knn_merge/kernel.py, knn_merge_cand_pallas
+// B2 replaces: src/repro/kernels/knn_merge/kernel.py, knn_merge_cand_pallas
 //   (body _make_cand_kernel, slot layout _slot_plan, merge merge_select).
-// On the main path it runs twice per step: HD refinement on X
+//   On the main path it runs twice per step: HD refinement on X
 //   (70,000 x 784, K = 32, C = 10, stored distances) behind the gate, and
 //   LD refinement on Y (70,000 x 2, K = 16, C = 8, current rows re-scored).
+// B4 replaces: src/repro/kernels/knn_merge/kernel.py, knn_merge_pallas
+//   (body _knn_merge_kernel).  It runs where the candidates come from
+//   threefry: FUnc-SNE with cand_fused=False (HD on X, C = 10 or 14 with
+//   reverse edges; LD rescore on Y, K = 16, C = 8) and nearest-neighbour
+//   descent (X, K = 32, C = 16).  The candidates arrive as a (B, C) int32
+//   block with an optional (B, C) bool validity block (active rows).
 //
-// Bound on the H100: bytes.  HD: each query scores its candidate rows of X
+// Bound of B2 on the H100: bytes.  HD: each query scores its candidate rows of X
 // (784 floats each, 3 flops per float); x does not fit the 50 MB L2, so the
 // gathered rows come from HBM (up to 70,000 x 11 rows x 3,136 B = 2.4 GB
 // per launch when every candidate is new).  LD: about 40 MB of tables, a
 // launch-overhead-sized kernel.
 //
-// Design: one warp per query row.  Lane g generates candidate slot g from
-// the counter hash (slot g draws 2g and 2g+1, exactly the JAX sampler),
-// then the dedup (self / in-list / earlier duplicate / SENTINEL / inactive)
-// runs before any scoring, so candidates that cannot enter the list never
-// cost a row read; the remaining rows are scored with the shared
+// Bound of B4 on the H100: bytes, as B2.  x is read once (219.5 MB at
+// MNIST's shape) and the ids and distances add about 40 MB: 0.08 ms at
+// 3.35 TB/s.  The candidate rows come from HBM, not the 50 MB L2: up to
+// 70,000 x (1 + C) rows x 3,136 B per launch (NND, C = 16: 3.73 GB,
+// 1.11 ms; FUnc-SNE HD, C = 10: 2.41 GB, 0.72 ms) when every candidate is
+// new.
+//
+// Design: one warp per query row.  Lane g takes candidate slot g: B2
+// generates it from the counter hash (slot g draws 2g and 2g+1, exactly
+// the JAX sampler), B4 reads it from the block; then the dedup (self /
+// in-list / earlier duplicate / SENTINEL / inactive or invalid) runs
+// before any scoring, so candidates that cannot enter the list never cost
+// a row read; the remaining rows are scored with the shared
 // warp_row_sqdist (coalesced float4 loads).  Deduplication and merging see
 // the raw ids; only scoring and the active lookup use the clipped ids.
 // The merge ranks the <= K + C elements of [current, candidates] in
@@ -53,6 +69,8 @@ struct MergeArgs {
   const int* first[2];         // (B, first_w) tables
   const int* second[2];        // (second_n, second_w) tables
   const int* extra;            // (B, extra_w)
+  const int* cand;             // B4: (B, C) precomputed candidates
+  const uint8_t* cand_valid;   // B4: (B, C) bool, or null = all valid
   int64_t second_n[2];
   int first_w[2];
   int second_w[2];
@@ -68,8 +86,11 @@ struct MergeArgs {
 
 namespace {
 
+// kPre: candidates and their validity from the (B, C) blocks (B4), else
+// generated from the slot plan and checked against `active` (B2).
+template <bool kPre>
 __global__ void __launch_bounds__(kWarps * 32)
-    knn_merge_cand_kernel(const MergeArgs a, bool vec4) {
+    knn_merge_kernel(const MergeArgs a, bool vec4) {
   __shared__ int s_cur[kWarps][kMaxK];
   __shared__ float s_cur_d[kWarps][kMaxK];
   __shared__ int s_cand[kWarps][kMaxC];
@@ -83,7 +104,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int k = a.k, c = a.c;
   const int row = a.qid[r];
   const int64_t q = repro::clamp_row(row, a.n);
-  const uint32_t salt = static_cast<uint32_t>(*a.salt);
+  uint32_t salt = 0;  // B4 has no salt
+  if constexpr (!kPre) salt = static_cast<uint32_t>(*a.salt);
   const uint32_t urow = static_cast<uint32_t>(row);
   const bool rescore = a.cur_d == nullptr;
 
@@ -94,7 +116,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane < c) {
     const int g = lane;
     int v;
-    if (a.kind[g] == kUniform) {
+    if constexpr (kPre) {
+      v = a.cand[r * c + g];
+    } else if (a.kind[g] == kUniform) {
       v = repro::counter_randint(salt, urow, 2 * g, static_cast<int>(a.n));
     } else if (a.kind[g] == kOneHop) {
       const int f = a.tab[g], fw = a.first_w[f];
@@ -122,7 +146,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane < c) {
     const int v = s_cand[w][lane];
     valid = v != repro::kSentinel && v != row;
-    if (a.active != nullptr) valid = valid && a.active[s_gat[w][lane]];
+    if constexpr (kPre) {
+      if (a.cand_valid != nullptr) valid = valid && a.cand_valid[r * c + lane];
+    } else if (a.active != nullptr) {
+      valid = valid && a.active[s_gat[w][lane]];
+    }
     for (int i = 0; i < k; ++i) valid = valid && v != s_cur[w][i];
     for (int j = 0; j < lane; ++j) valid = valid && v != s_cand[w][j];
   }
@@ -167,18 +195,29 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-}  // namespace
-
-extern "C" int repro_knn_merge_cand(const MergeArgs* args,
-                                    cudaStream_t stream) {
+template <bool kPre>
+int launch(const MergeArgs* args, cudaStream_t stream) {
   if (args->k < 1 || args->k > kMaxK || args->c < 1 || args->c > kMaxC) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (args->b > 0) {
     const int64_t blocks = (args->b + kWarps - 1) / kWarps;
-    knn_merge_cand_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                            stream>>>(*args,
-                                      repro::can_vec4(args->x, args->m));
+    knn_merge_kernel<kPre><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+                             stream>>>(*args,
+                                       repro::can_vec4(args->x, args->m));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// B2: candidates generated in the kernel.
+extern "C" int repro_knn_merge_cand(const MergeArgs* args,
+                                    cudaStream_t stream) {
+  return launch<false>(args, stream);
+}
+
+// B4: candidates from the precomputed block.
+extern "C" int repro_knn_merge(const MergeArgs* args, cudaStream_t stream) {
+  return launch<true>(args, stream);
 }

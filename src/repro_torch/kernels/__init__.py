@@ -13,6 +13,8 @@ LAUNCHES = {
     "pairwise_sqdist_gather": 0,
     "knn_merge_cand_hd": 0,
     "knn_merge_cand_ld": 0,
+    "knn_merge_hd": 0,
+    "knn_merge_ld": 0,
     "ne_forces_scatter": 0,
     "pairwise_sqdist": 0,
     "ne_forces": 0,

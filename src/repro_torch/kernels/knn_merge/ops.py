@@ -1,5 +1,6 @@
-"""Candidate-fused neighbour refinement (B2): plain version on the CPU, the
-CUDA kernel ``csrc/knn_merge.cu`` on the card."""
+"""Neighbour refinement on precomputed candidates (B4) and candidate-fused
+(B2): plain versions on the CPU, the CUDA kernels of ``csrc/knn_merge.cu``
+(one kernel body) on the card."""
 from __future__ import annotations
 
 import ctypes
@@ -7,7 +8,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
-from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref
+from repro_torch.kernels.knn_merge.ref import (knn_merge_cand_ref,
+                                               knn_merge_ref)
 
 _MAX_K, _MAX_C, _MAX_TABLES = 64, 32, 2
 _KINDS = {"uniform": 0, "one_hop": 1, "two_hop": 2, "extra": 3}
@@ -21,12 +23,89 @@ class _MergeArgs(ctypes.Structure):
         ("cur_idx", _P), ("cur_d", _P), ("cur_valid", _P), ("k", _I),
         ("c", _I), ("salt", _P), ("active", _P),
         ("first", _P * 2), ("second", _P * 2), ("extra", _P),
+        ("cand", _P), ("cand_valid", _P),
         ("second_n", _I64 * 2), ("first_w", _I * 2), ("second_w", _I * 2),
         ("extra_w", _I),
         ("kind", _I * _MAX_C), ("tab", _I * _MAX_C), ("sec", _I * _MAX_C),
         ("col", _I * _MAX_C),
         ("new_idx", _P), ("new_d", _P), ("improved", _P),
     ]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _merge_args(x, qid, cur_idx, cur_d, cur_valid, c):
+    """Check the inputs both kernels share, allocate the outputs and fill
+    the common fields.  Returns (args, (new_idx, new_d, improved))."""
+    req = _build.require
+    n, m = x.shape
+    b, k = cur_idx.shape
+    req(x.dtype == torch.float32 and x.ndim == 2 and x.is_contiguous(),
+        "x must be a contiguous (N, M) float32 tensor")
+    req(qid.dtype == torch.int32 and qid.shape == (b,) and qid.is_contiguous(),
+        "qid must be a contiguous (B,) int32 tensor")
+    req(cur_idx.dtype == torch.int32 and cur_idx.is_contiguous()
+        and 1 <= k <= _MAX_K, f"cur_idx must be contiguous int32 (B, K<={_MAX_K})")
+    req(1 <= c <= _MAX_C, f"need 1..{_MAX_C} candidate slots, got {c}")
+    if cur_d is not None:
+        req(cur_d.dtype == torch.float32 and cur_d.shape == (b, k)
+            and cur_d.is_contiguous(), "cur_d must be contiguous (B, K) float32")
+    else:
+        req(cur_valid.dtype == torch.bool and cur_valid.shape == (b, k)
+            and cur_valid.is_contiguous(), "cur_valid must be (B, K) bool")
+    outs = (torch.empty((b, k), dtype=torch.int32, device=x.device),
+            torch.empty((b, k), dtype=torch.float32, device=x.device),
+            torch.empty((b,), dtype=torch.bool, device=x.device))
+    a = _MergeArgs(x=x.data_ptr(), n=n, m=m, qid=qid.data_ptr(), b=b,
+                   cur_idx=cur_idx.data_ptr(), cur_d=_ptr(cur_d),
+                   cur_valid=_ptr(cur_valid), k=k, c=c,
+                   new_idx=outs[0].data_ptr(), new_d=outs[1].data_ptr(),
+                   improved=outs[2].data_ptr())
+    return a, outs
+
+
+def _launch(entry, a, x):
+    with torch.cuda.device(x.device):
+        _build.call(entry, [ctypes.POINTER(_MergeArgs), _P], ctypes.byref(a),
+                    _build.stream_of(x))
+
+
+def knn_merge(x, qid, cur_idx, cur_d, cand, *, cand_active=None,
+              cur_valid=None):
+    """Score C precomputed candidates per row, dedup and top-K merge (B4).
+
+    Args mirror ``repro.kernels.knn_merge.ops.knn_merge`` with a ``cand``:
+      x: (N, M) f32 source matrix (X for HD refinement, Y for LD).
+      qid: (B,) int32 query row ids.
+      cur_idx: (B, K) int32 resident list; SENTINEL = invalid.
+      cur_d: (B, K) f32 stored sorted distances, or None to re-score the
+        current rows (LD mode), which requires ``cur_valid`` (B, K) bool.
+      cand: (B, C) int32 candidates; SENTINEL and out-of-range ids are
+        allowed (scored at the clipped id, deduped and merged raw).
+      cand_active: optional (B, C) bool extra validity (active rows).
+    Returns (new_idx (B, K) int32, new_d (B, K) f32, improved (B,) bool).
+    """
+    if (cur_d is None) == (cur_valid is None):
+        raise ValueError("pass cur_d (HD mode) or cur_valid (rescore mode)")
+    opt = [t for t in (cur_d, cur_valid, cand_active) if t is not None]
+    if _build.kernel_device(x, qid, cur_idx, cand, *opt) == "cpu":
+        return knn_merge_ref(x, qid, cur_idx, cur_d, cand,
+                             cand_active=cand_active, cur_valid=cur_valid)
+    b, c = cand.shape
+    req = _build.require
+    req(cand.dtype == torch.int32 and cand.ndim == 2 and b == qid.shape[0]
+        and cand.is_contiguous(), "cand must be a contiguous (B, C) int32 tensor")
+    if cand_active is not None:
+        req(cand_active.dtype == torch.bool and cand_active.shape == (b, c)
+            and cand_active.is_contiguous(),
+            "cand_active must be a contiguous (B, C) bool tensor")
+    a, outs = _merge_args(x, qid, cur_idx, cur_d, cur_valid, c)
+    a.cand, a.cand_valid = cand.data_ptr(), _ptr(cand_active)
+    _launch("repro_knn_merge", a, x)
+    LAUNCHES["knn_merge_ld" if cur_d is None else "knn_merge_hd"] += 1
+    return outs
 
 
 def _slot_plan(sources):
@@ -47,7 +126,7 @@ def _slot_plan(sources):
 def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
                    first_tables=(), second_tables=(), extra=None,
                    active=None, cur_valid=None):
-    """Generate C candidates per row, score, dedup and top-K merge.
+    """Generate C candidates per row, score, dedup and top-K merge (B2).
 
     Args mirror ``repro.kernels.knn_merge.ops.knn_merge`` in its
     candidate-fused mode:
@@ -75,15 +154,8 @@ def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
                                   active=active, cur_valid=cur_valid)
     req = _build.require
     plan = _slot_plan(sources)
-    n, m = x.shape
-    b, k = cur_idx.shape
-    req(x.dtype == torch.float32 and x.ndim == 2 and x.is_contiguous(),
-        "x must be a contiguous (N, M) float32 tensor")
-    req(qid.dtype == torch.int32 and qid.shape == (b,) and qid.is_contiguous(),
-        "qid must be a contiguous (B,) int32 tensor")
-    req(cur_idx.dtype == torch.int32 and cur_idx.is_contiguous()
-        and 1 <= k <= _MAX_K, f"cur_idx must be contiguous int32 (B, K<={_MAX_K})")
-    req(1 <= len(plan) <= _MAX_C, f"need 1..{_MAX_C} candidate slots")
+    n = x.shape[0]
+    b = cur_idx.shape[0]
     req(salt.dtype == torch.int32 and salt.numel() == 1, "salt must be int32")
     req(len(first_tables) <= _MAX_TABLES and len(second_tables) <= _MAX_TABLES,
         f"at most {_MAX_TABLES} first and second tables")
@@ -101,30 +173,13 @@ def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
         req(extra is not None and extra.dtype == torch.int32
             and extra.shape == (b, n_extra) and extra.is_contiguous(),
             f"extra must be a contiguous (B, {n_extra}) int32 tensor")
-    if cur_d is not None:
-        req(cur_d.dtype == torch.float32 and cur_d.shape == (b, k)
-            and cur_d.is_contiguous(), "cur_d must be contiguous (B, K) float32")
-    else:
-        req(cur_valid.dtype == torch.bool and cur_valid.shape == (b, k)
-            and cur_valid.is_contiguous(), "cur_valid must be (B, K) bool")
     if active is not None:
         req(active.dtype == torch.bool and active.shape == (n,)
             and active.is_contiguous(), "active must be a (N,) bool tensor")
 
-    new_idx = torch.empty((b, k), dtype=torch.int32, device=x.device)
-    new_d = torch.empty((b, k), dtype=torch.float32, device=x.device)
-    improved = torch.empty((b,), dtype=torch.bool, device=x.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    a = _MergeArgs(x=x.data_ptr(), n=n, m=m, qid=qid.data_ptr(), b=b,
-                   cur_idx=cur_idx.data_ptr(), cur_d=ptr(cur_d),
-                   cur_valid=ptr(cur_valid), k=k, c=len(plan),
-                   salt=salt.data_ptr(), active=ptr(active),
-                   extra=ptr(extra), extra_w=n_extra,
-                   new_idx=new_idx.data_ptr(), new_d=new_d.data_ptr(),
-                   improved=improved.data_ptr())
+    a, outs = _merge_args(x, qid, cur_idx, cur_d, cur_valid, len(plan))
+    a.salt, a.active = salt.data_ptr(), _ptr(active)
+    a.extra, a.extra_w = _ptr(extra), n_extra
     for i, f in enumerate(first_tables):
         a.first[i], a.first_w[i] = f.data_ptr(), f.shape[1]
     for i, s in enumerate(second_tables):
@@ -132,8 +187,6 @@ def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
                                                      s.shape[0], s.shape[1])
     for g, (kind, f, s, e) in enumerate(plan):
         a.kind[g], a.tab[g], a.sec[g], a.col[g] = kind, f, s, e
-    with torch.cuda.device(x.device):
-        _build.call("repro_knn_merge_cand", [ctypes.POINTER(_MergeArgs), _P],
-                    ctypes.byref(a), _build.stream_of(x))
+    _launch("repro_knn_merge_cand", a, x)
     LAUNCHES["knn_merge_cand_ld" if cur_d is None else "knn_merge_cand_hd"] += 1
-    return new_idx, new_d, improved
+    return outs

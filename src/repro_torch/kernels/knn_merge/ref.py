@@ -1,10 +1,11 @@
-"""Plain PyTorch version of the candidate-fused merge kernel (B2).
+"""Plain PyTorch versions of the merge kernels (B4 and B2).
 
-``merge_select`` is the kernel's selection algorithm written as flat
+``merge_select`` is the kernels' selection algorithm written as flat
 tensor code (the counterpart of ``repro.kernels.knn_merge.kernel.
 merge_select``): dedup, then stable ranks over the [current, candidate]
-concatenation.  ``knn_merge_cand_ref`` feeds it the counter-RNG candidate
-block of ``core.knn.counter_candidates``.
+concatenation.  ``knn_merge_ref`` (B4) scores a precomputed candidate
+block and feeds it to ``merge_select``; ``knn_merge_cand_ref`` (B2)
+generates the counter-RNG block of ``core.knn.counter_candidates`` first.
 """
 from __future__ import annotations
 
@@ -46,6 +47,31 @@ def merge_select(qid_col, cur_idx, cur_d, cand, cand_d, ext_valid):
     return new_idx[:, :k].contiguous(), new_d[:, :k].contiguous(), improved
 
 
+def knn_merge_ref(x, qid, cur_idx, cur_d, cand, *, cand_active=None,
+                  cur_valid=None):
+    """Score a precomputed candidate block, dedup and merge (B4's plain
+    version; see ``ops.knn_merge``).
+
+    Candidates are scored at their clipped ids and merged as their raw
+    ids; with ``cur_d=None`` the current rows are re-scored and masked by
+    ``cur_valid``.  Equals the JAX ``knn_merge_ref`` and
+    ``knn_merge_rank_ref``.
+    """
+    if cur_d is None:
+        # rescore: the embedding moved since the list was merged
+        k = cur_idx.shape[1]
+        both = pairwise_sqdist_gather_ref(x, qid, torch.cat([cur_idx, cand], 1))
+        cur_d, cand_d = both[:, :k], both[:, k:]
+        cur_d = torch.where(cur_valid, cur_d, torch.inf)
+    else:
+        cand_d = pairwise_sqdist_gather_ref(x, qid, cand)
+    if cand_active is None:
+        cand_active = torch.ones(cand.shape, dtype=torch.bool,
+                                 device=cand.device)
+    return merge_select(qid[:, None], cur_idx, cur_d, cand, cand_d,
+                        cand_active)
+
+
 def knn_merge_cand_ref(x, qid, cur_idx, cur_d, *, salt, sources,
                        first_tables=(), second_tables=(), extra=None,
                        active=None, cur_valid=None):
@@ -53,15 +79,7 @@ def knn_merge_cand_ref(x, qid, cur_idx, cur_d, *, salt, sources,
     n = x.shape[0]
     cand = counter_candidates(salt, qid, sources, first_tables,
                               second_tables, n_total=n, extra=extra)
-    if active is None:
-        ext_valid = torch.ones(cand.shape, dtype=torch.bool, device=x.device)
-    else:
-        ext_valid = active[cand.long().clamp(0, n - 1)]
-    if cur_d is None:
-        # rescore: the embedding moved since the list was merged
-        both = pairwise_sqdist_gather_ref(x, qid, torch.cat([cur_idx, cand], 1))
-        cur_d, cand_d = both[:, :cur_idx.shape[1]], both[:, cur_idx.shape[1]:]
-        cur_d = torch.where(cur_valid, cur_d, torch.inf)
-    else:
-        cand_d = pairwise_sqdist_gather_ref(x, qid, cand)
-    return merge_select(qid[:, None], cur_idx, cur_d, cand, cand_d, ext_valid)
+    cand_active = None if active is None \
+        else active[cand.long().clamp(0, n - 1)]
+    return knn_merge_ref(x, qid, cur_idx, cur_d, cand,
+                         cand_active=cand_active, cur_valid=cur_valid)

@@ -107,14 +107,14 @@ def test_counter_candidates_bit_exact(seed):
 
 
 def test_init_knn_idx_distinct_and_self_free():
-    g = torch.Generator().manual_seed(0)
-    idx = t_knn.init_knn_idx(g, 300, 300, 32).numpy()
+    key = torch.tensor([0, 0])
+    idx = t_knn.init_knn_idx(key, 300, 300, 32).numpy()
     assert idx.dtype == np.int32 and idx.shape == (300, 32)
     assert ((idx >= 0) & (idx < 300)).all()
     assert (idx != np.arange(300)[:, None]).all()
     assert all(len(set(r)) == 32 for r in idx)
     with pytest.raises(ValueError):
-        t_knn.init_knn_idx(g, 10, 10, 10)
+        t_knn.init_knn_idx(key, 10, 10, 10)
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """The port's step, chunk runner and fit against the JAX package.
 
 Both packages start from one JAX-made state passed through the numpy
-bridge (``repro_torch.core.convert``): the port draws its own start with a
-``torch.Generator``, the JAX package with threefry, so only a shared state
-makes the trajectories comparable.  X is quantised to quarter-integers, so
+bridge (``repro_torch.core.convert``), so the float fields start equal
+(``init_state``'s own start is held to JAX in
+``tests/test_torch_threefry.py``).  X is quantised to quarter-integers, so
 HD distances are exact and the discrete fields must match exactly; the
 float fields carry the rounding of two compilers (XLA may contract a*b+c
 into one FMA, torch does not; exp/log differ in the last bits):
@@ -189,14 +189,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still unported raises: ``cand_fused=False`` (threefry) and
-    the fit/CLI options; the counter-RNG flag settings construct."""
-    with pytest.raises(NotImplementedError):
-        tf.FuncSNEConfig(n_points=10, dim_hd=3, cand_fused=False)
-    with pytest.raises(NotImplementedError):
-        tf.FuncSNEConfig(n_points=10, dim_hd=3, c_hd_rev=2, cand_fused=False)
+    """What is still unported raises: the fit/CLI options; every flag
+    setting of the config, ``cand_fused=False`` included, constructs."""
     for kw in (dict(gather_fused=False), dict(scatter_fused=False),
-               dict(merge_fused=False), dict(c_hd_rev=2, rev_refresh=1)):
+               dict(merge_fused=False), dict(c_hd_rev=2, rev_refresh=1),
+               dict(cand_fused=False), dict(c_hd_rev=2, cand_fused=False)):
         cfg = tf.FuncSNEConfig(n_points=10, dim_hd=3, **kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
     X = np.zeros((20, 3), np.float32)
