@@ -1,4 +1,4 @@
-"""The state bridge between the port and the JAX package.
+"""The state and weight bridges between the port and the JAX package.
 
 Both sides meet in numpy: the JAX ``FuncSNEState``'s fields as numpy
 arrays, with its PRNG key given as ``jax.random.key_data(key)`` words (a
@@ -60,4 +60,30 @@ def state_to_numpy(st: FuncSNEState) -> dict:
     out = {}
     for name, dtype in _DTYPES.items():
         out[name] = getattr(st, name).detach().cpu().numpy().astype(dtype)
+    return out
+
+
+def lm_params_from_jax(params_np, device="cuda") -> dict:
+    """The port's LM parameters from JAX ``LMModel.init_params`` output
+    given as numpy (e.g. ``jax.tree.map(np.asarray, params)``).
+
+    JAX stacks the layers: each leaf of ``params["blocks"]`` has a leading
+    L dim.  The port keeps a list of per-layer dicts of the same keys;
+    every other entry (``embed``, ``final_norm``, ``lm_head``) is copied.
+    """
+    dev = resolve_device(device)
+
+    def tree(x, index=None):
+        if isinstance(x, Mapping):
+            return {k: tree(v, index) for k, v in x.items()}
+        a = np.asarray(x)
+        a = np.array(a if index is None else a[index])
+        if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16
+            return torch.from_numpy(a.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(a).to(dev)
+    out = {k: tree(v) for k, v in params_np.items() if k != "blocks"}
+    blocks = params_np["blocks"]
+    n_layers = len(np.asarray(blocks["ln_attn"]))
+    out["blocks"] = [tree(blocks, i) for i in range(n_layers)]
     return out

@@ -11,9 +11,10 @@ One ``funcsne_step`` does, in the JAX package's order:
 
 Every setting of the JAX config runs on one device: the default fused path
 (kernels B1-B3), ``gather_fused=False`` (B6 on pre-gathered rows, B7 per
-force segment), ``scatter_fused=False`` (B5 and an ``index_add_``
-symmetrisation), ``merge_fused=False`` (B1 and the plain dedup/merge),
-reverse-edge candidates (``c_hd_rev > 0``, the table rebuilt every
+force segment, a deterministic segment-sum symmetrisation),
+``scatter_fused=False`` (B5, the same symmetrisation),
+``merge_fused=False`` (B1 and the plain dedup/merge), reverse-edge
+candidates (``c_hd_rev > 0``, the table rebuilt every
 ``rev_refresh`` steps) and ``cand_fused=False``, where the candidates,
 negatives, gate and reverse-table fill come from threefry and the merge is
 B4 on the precomputed candidate block.
@@ -42,7 +43,8 @@ from repro_torch.core import affinities
 from repro_torch.core import knn
 from repro_torch.core import threefry
 from repro_torch.core.knn import SENTINEL
-from repro_torch.kernels.knn_merge.ops import knn_merge, knn_merge_cand
+from repro_torch.kernels.knn_merge.ops import (MAX_C, MAX_K, knn_merge,
+                                               knn_merge_cand)
 from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref, knn_merge_ref
 from repro_torch.kernels.ne_forces.ops import (ne_forces, ne_forces_gather,
                                                ne_forces_scatter)
@@ -53,6 +55,8 @@ from repro_torch.kernels.pairwise_sqdist.ops import (pairwise_sqdist,
                                                      pairwise_sqdist_gather)
 from repro_torch.kernels.pairwise_sqdist.ref import (
     pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
+from repro_torch.kernels.segment_sum.ops import segment_sum
+from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 
 
 # --------------------------------------------------------------------------
@@ -126,16 +130,18 @@ class Ops(NamedTuple):
     ne_forces_gather: Callable          # B5
     pairwise_sqdist: Callable           # B6
     ne_forces: Callable                 # B7
+    segment_sum: Callable               # the unfused paths' symmetrisation
 
 
 # the kernel wrappers (the plain version on CPU tensors, the CUDA kernel on
 # CUDA tensors) -- and the plain versions alone, which run on either
 # device and are what the kernels are compared with on the card
 KERNELS = Ops(pairwise_sqdist_gather, knn_merge_cand, ne_forces_scatter,
-              knn_merge, ne_forces_gather, pairwise_sqdist, ne_forces)
+              knn_merge, ne_forces_gather, pairwise_sqdist, ne_forces,
+              segment_sum)
 PLAIN = Ops(pairwise_sqdist_gather_ref, knn_merge_cand_ref,
             ne_forces_scatter_ref, knn_merge_ref, ne_forces_gather_ref,
-            pairwise_sqdist_ref, ne_forces_ref)
+            pairwise_sqdist_ref, ne_forces_ref, segment_sum_ref)
 
 # counter-RNG stream tags: per-step salts are hash3(base, step, TAG)
 _TAG_GATE, _TAG_HD, _TAG_LD, _TAG_NEG, _TAG_REV = 1, 2, 3, 4, 5
@@ -339,10 +345,10 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
 
     The default path bins every edge in B3 (deterministic fixed point).
     With ``scatter_fused=False`` (B5) or ``gather_fused=False`` (B7) the
-    kernels return per-edge forces and the symmetrisation is three
-    ``index_add_`` calls, as the JAX package's ``.at[].add``; on CUDA those
-    add with atomics in a run-dependent order, so that path is not
-    bit-deterministic on the card.
+    kernels return per-edge forces and the symmetrisation is one segment
+    sum over [rows, HD edges, LD edges], the JAX package's three
+    ``.at[].add`` calls in their order; it adds each row's terms in that
+    fixed order, so both paths repeat bit for bit on the card.
     """
     n, d = cfg.n_points, cfg.dim_ld
     ids = _ids(st)
@@ -419,13 +425,13 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
             agg_q = attr_s * aggs[0] + rep_s * (aggs[1] + scale_neg * aggs[2])
         else:
             agg_q = attr_s * aggs[0] + rep_s * aggs[1]
-        buf = torch.zeros((n, d), dtype=torch.float32, device=ids.device)
-        buf.index_add_(0, ids, agg_q)
         # each directed edge also acts on its neighbour row
-        for i, edge, s in ((st.hd_idx, edges[0], attr_s),
-                           (st.ld_idx, edges[1], rep_s)):
-            buf.index_add_(0, i.long().clamp(0, n - 1).reshape(-1),
-                           -(s * edge).reshape(-1, d))
+        tgt = [ids.long()] + [i.long().clamp(0, n - 1).reshape(-1)
+                              for i in (st.hd_idx, st.ld_idx)]
+        val = [agg_q] + [-(s * edge).reshape(-1, d)
+                         for edge, s in ((edges[0], attr_s),
+                                         (edges[1], rep_s))]
+        buf = ops.segment_sum(torch.cat(tgt), torch.cat(val), n)
     dY = 4.0 * buf
 
     # t-SNE gains + momentum
@@ -498,6 +504,22 @@ def pca_directions(X, d: int, n_iter: int = 24, rng=None):
     return q
 
 
+def check_card_bounds(cfg: FuncSNEConfig):
+    """Raise ``ValueError`` where ``cfg`` exceeds what the card's merge
+    kernels take (B2/B4: K <= MAX_K list entries and C <= MAX_C candidate
+    slots per row).  The embedding width has no bound."""
+    c_hd = (cfg.c_hd_non + cfg.c_hd_ld + cfg.c_hd_ld_non + cfg.c_hd_rand
+            + cfg.c_hd_rev)
+    c_ld = cfg.c_ld_non + cfg.c_ld_hd + cfg.c_ld_rand
+    for name, v, bound in (("k_hd", cfg.k_hd, MAX_K), ("k_ld", cfg.k_ld, MAX_K),
+                           ("HD candidates per row", c_hd, MAX_C),
+                           ("LD candidates per row", c_ld, MAX_C)):
+        if v > bound:
+            raise ValueError(
+                f"{name} = {v} exceeds the card's merge-kernel bound {bound} "
+                f"(K <= {MAX_K}, C <= {MAX_C})")
+
+
 def validate_inputs(X, cfg: FuncSNEConfig, *, check_finite: bool = True):
     """Raise ``ValueError`` on an ``X`` (a float tensor) that does not fit
     ``cfg`` or would give a NaN embedding."""
@@ -514,6 +536,8 @@ def validate_inputs(X, cfg: FuncSNEConfig, *, check_finite: bool = True):
             raise ValueError(
                 f"cfg.{name}={k} must be < n_points={n}: a row cannot "
                 f"have {k} distinct neighbours among {n - 1} other points")
+    if X.is_cuda:
+        check_card_bounds(cfg)
     if check_finite and X.is_floating_point():
         bad = int((~torch.isfinite(X).all(dim=1)).sum())
         if bad:
@@ -595,6 +619,7 @@ def init_state(X, cfg: FuncSNEConfig, *, seed: int = 0, init: str = "pca",
 class ChunkMetrics(NamedTuple):
     """Per-chunk telemetry: 0-dim tensors, read once per chunk."""
     step: Any           # () int32 global iteration count after the chunk
+    n_snapshots: Any    # () int32 ring slots written this chunk
     disp_ema: Any       # () f32 EMA over the chunk of mean |vel| (active)
     zhat: Any           # () f32 Z estimator at chunk end
     ema_new_frac: Any   # () f32 HD-refinement EMA at chunk end
@@ -610,22 +635,29 @@ _METRICS_DECAY = 0.9
 
 
 def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
-                      n_iter=None):
-    """``chunk(st, X, hp) -> (st, ChunkMetrics)``: ``T`` steps.
+                      n_iter=None, snapshot_every: int = 0):
+    """``chunk(st, X, hp) -> (st, snapshots, ChunkMetrics)``: ``T`` steps.
 
-    The counterpart of the JAX ``make_chunked_step`` without its snapshot
-    ring: the schedule is evaluated from the carried ``st.step`` and the
-    per-step scalars fold into :class:`ChunkMetrics` on the device.
+    The counterpart of the JAX ``make_chunked_step``: the schedule is
+    evaluated from the carried ``st.step``, the per-step scalars fold into
+    :class:`ChunkMetrics` on the device, and ``snapshots`` is a device
+    ring of ``T // snapshot_every + 1`` (n, d) slots (0 slots when
+    ``snapshot_every`` is 0) that captures Y after every step whose new
+    ``st.step`` is a multiple of ``snapshot_every``; the first
+    ``metrics.n_snapshots`` slots are written.
     """
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
     if schedule is not None and n_iter is None:
         raise ValueError("schedule requires a static n_iter horizon")
-    d = cfg.dim_ld
+    n, d = cfg.n_points, cfg.dim_ld
+    n_snap = (T // snapshot_every + 1) if snapshot_every else 0
     decay = _METRICS_DECAY
 
     def chunk(st: FuncSNEState, X, hp: HParams):
         dev = st.Y.device
+        snaps = torch.zeros((n_snap, n, d), dtype=torch.float32, device=dev)
+        k = torch.zeros((), dtype=torch.int32, device=dev)
         disp = torch.zeros((), dtype=torch.float32, device=dev)
         ff_min = torch.ones((), dtype=torch.float32, device=dev)
         ymax = torch.zeros((), dtype=torch.float32, device=dev)
@@ -646,10 +678,18 @@ def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
             bad = torch.where((bad < 0) & (ff < 1.0), st.step - 1, bad)
             ff_min = torch.minimum(ff_min, ff)
             ymax = torch.maximum(ymax, step_max)
-        return st, ChunkMetrics(step=st.step, disp_ema=disp, zhat=st.zhat,
-                                ema_new_frac=st.ema_new_frac,
-                                finite_frac=ff_min, y_max_abs=ymax,
-                                bad_step=bad)
+            if n_snap:
+                # written on the device, as the JAX ring's cond: slot k is
+                # overwritten with itself when the step is not due
+                due = st.step % snapshot_every == 0
+                slot = k.clamp(0, n_snap - 1).long().reshape(1)
+                snaps.index_copy_(0, slot, torch.where(
+                    due, st.Y, snaps.index_select(0, slot)[0])[None])
+                k = k + due.int()
+        return st, snaps, ChunkMetrics(
+            step=st.step, n_snapshots=k, disp_ema=disp, zhat=st.zhat,
+            ema_new_frac=st.ema_new_frac, finite_frac=ff_min, y_max_abs=ymax,
+            bad_step=bad)
 
     return chunk
 
@@ -674,17 +714,19 @@ def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
         chunk_size: int = None, state: FuncSNEState = None,
         validate: bool = True, device="cuda", snapshot_every: int = 0,
         callback=None, early_stop=None, auto_rescale=None, resilience=None,
-        resume_from=None) -> FuncSNEState:
+        resume_from=None):
     """Embed ``X``: ``init_state`` then chunks of ``chunk_size`` steps.
 
-    Returns the final state (the JAX ``fit`` also returns snapshots; the
-    port has no snapshot ring yet).  ``snapshot_every``, ``callback``,
-    ``early_stop``, ``auto_rescale``, ``resilience`` and ``resume_from``
-    are not ported yet and raise ``NotImplementedError``.
+    Returns ``(state, snapshots)`` as the JAX ``fit``: ``snapshots`` is
+    the list of numpy (n, d) copies of Y after every step whose count is
+    a multiple of ``snapshot_every`` (empty when it is 0), drained from
+    each chunk's ring.  ``callback``, ``early_stop``, ``auto_rescale``,
+    ``resilience`` and ``resume_from`` are not ported yet and raise
+    ``NotImplementedError``.
     """
-    unported = {"snapshot_every": snapshot_every, "callback": callback,
-                "early_stop": early_stop, "auto_rescale": auto_rescale,
-                "resilience": resilience, "resume_from": resume_from}
+    unported = {"callback": callback, "early_stop": early_stop,
+                "auto_rescale": auto_rescale, "resilience": resilience,
+                "resume_from": resume_from}
     given = [k for k, v in unported.items() if v]
     if given:
         raise NotImplementedError(f"fit options not ported yet: {given}")
@@ -703,10 +745,18 @@ def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
     st = state if state is not None else init_state(
         X, cfg, seed=seed, init=init, perplexity=hparams.perplexity,
         validate=False, device=dev)
+    snapshots = []
+    chunks = {}
     it = 0
     while it < n_iter:
         T = min(chunk_size, n_iter - it)
-        chunk = make_chunked_step(cfg, T, schedule=schedule, n_iter=n_iter)
-        st, _ = chunk(st, X, hparams)
+        if T not in chunks:
+            chunks[T] = make_chunked_step(cfg, T, schedule=schedule,
+                                          n_iter=n_iter,
+                                          snapshot_every=snapshot_every)
+        st, snaps, metrics = chunks[T](st, X, hparams)
+        if snapshot_every:
+            taken = int(metrics.n_snapshots)
+            snapshots.extend(list(snaps[:taken].cpu().numpy()))
         it += T
-    return st
+    return st, snapshots

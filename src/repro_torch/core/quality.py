@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.knn import exact_knn
 
 
@@ -64,3 +65,50 @@ def embedding_quality(X, Y, kmax: int = 64):
     true_idx, _ = exact_knn(X, kmax)
     emb_idx, _ = exact_knn(Y, kmax)
     return rnx_auc(rnx_curve(emb_idx, true_idx, X.shape[0]))
+
+
+def _xla_mean(x):
+    """``jnp.mean`` as XLA computes it: the float32 sum times
+    float32(1 / count), not a division."""
+    inv = torch.tensor(1.0 / x.numel(), dtype=torch.float32, device=x.device)
+    return x.float().sum() * inv
+
+
+def one_shot_prototypes(labels, classes, key):
+    """One revealed example per class: member ``randint(fold_in(key, c),
+    (), 0, count)`` of class ``c``'s members in index order (the draw of
+    the JAX ``one_nn_accuracy``).  Returns (n_classes,) int64 row ids."""
+    protos = []
+    for ci in range(classes.shape[0]):
+        members = torch.nonzero(labels == classes[ci])[:, 0]
+        count = int(members.shape[0])
+        pick = int(threefry.randint(threefry.fold_in(key, ci), (), 0,
+                                    max(count, 1)))
+        protos.append(int(members[pick]))
+    return torch.tensor(protos, dtype=torch.int64, device=labels.device)
+
+
+def one_nn_accuracy(Z, labels, key, n_trials: int = 1, one_shot: bool = False):
+    """1-NN classification accuracy in representation Z (paper Table 2).
+
+    one_shot: reveal one random labelled example per class per trial
+    (``one_shot_prototypes`` with ``fold_in(key, t)``) and classify the
+    rest by the nearest revealed example; otherwise leave-one-out 1-NN.
+    ``key`` is a threefry key.  Returns a 0-dim float32 tensor.
+    """
+    Z = torch.as_tensor(Z).float()
+    labels = torch.as_tensor(labels).to(Z.device)
+    n = Z.shape[0]
+    if not one_shot:
+        idx, _ = exact_knn(Z, 1)
+        return _xla_mean(labels[idx[:, 0].long()] == labels)
+
+    classes = torch.unique(labels)
+    accs = []
+    for t in range(n_trials):
+        protos = one_shot_prototypes(labels, classes, threefry.fold_in(key, t))
+        d2 = ((Z[:, None, :] - Z[protos][None, :, :]) ** 2).sum(dim=-1)
+        pred = classes[torch.argmin(d2, dim=1)]
+        mask = ~torch.isin(torch.arange(n, device=Z.device), protos)
+        accs.append(((pred == labels) & mask).sum() / mask.sum())
+    return _xla_mean(torch.stack(accs))

@@ -40,12 +40,18 @@
 // registers: rank(e) = #{e' : d[e'] < d[e] or (d[e'] == d[e] and e' < e)},
 // which is lax.top_k's tie rule (current before candidate, lower index
 // first), and each element with rank < K is written to slot rank.
+//
+// Sizes: a warp's lists live in dynamic shared memory sized at launch,
+// 4 (2K + 4C) bytes per warp, and its lanes stride over the C slots (lane g
+// takes slots g, g + 32, ...), so K and C are bounded only by
+// kMaxK = 1024 and kMaxC = 128 (the slot plan is a kernel argument of C
+// entries): 40 KB a block at both bounds, inside the default 48 KB.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxK = 64;
-constexpr int kMaxC = 32;
+constexpr int kMaxK = 1024;
+constexpr int kMaxC = 128;
 constexpr int kWarps = 4;
 enum SlotKind { kUniform = 0, kOneHop = 1, kTwoHop = 2, kExtra = 3 };
 
@@ -86,22 +92,37 @@ struct MergeArgs {
 
 namespace {
 
+// A warp's slice of the dynamic shared memory: the current list (ids,
+// distances) and the candidates (raw ids, clipped ids, distances, validity).
+struct WarpLists {
+  int* cur;
+  float* cur_d;
+  int* cand;
+  int* gat;
+  float* cand_d;
+  int* ok;
+};
+
+__host__ __device__ inline size_t warp_smem_bytes(int k, int c) {
+  return sizeof(int) * (2 * static_cast<size_t>(k) + 4 * static_cast<size_t>(c));
+}
+
 // kPre: candidates and their validity from the (B, C) blocks (B4), else
 // generated from the slot plan and checked against `active` (B2).
 template <bool kPre>
 __global__ void __launch_bounds__(kWarps * 32)
     knn_merge_kernel(const MergeArgs a, bool vec4) {
-  __shared__ int s_cur[kWarps][kMaxK];
-  __shared__ float s_cur_d[kWarps][kMaxK];
-  __shared__ int s_cand[kWarps][kMaxC];
-  __shared__ int s_gat[kWarps][kMaxC];
-  __shared__ float s_cand_d[kWarps][kMaxC];
-
+  extern __shared__ int smem[];
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + w;
   if (r >= a.b) return;  // uniform per warp
   const int k = a.k, c = a.c;
+  int* base = smem + w * (2 * k + 4 * c);
+  const WarpLists L{base, reinterpret_cast<float*>(base + k), base + 2 * k,
+                    base + 2 * k + c,
+                    reinterpret_cast<float*>(base + 2 * k + 2 * c),
+                    base + 2 * k + 3 * c};
   const int row = a.qid[r];
   const int64_t q = repro::clamp_row(row, a.n);
   uint32_t salt = 0;  // B4 has no salt
@@ -110,11 +131,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   const bool rescore = a.cur_d == nullptr;
 
   for (int i = lane; i < k; i += 32) {
-    s_cur[w][i] = a.cur_idx[r * k + i];
-    if (!rescore) s_cur_d[w][i] = a.cur_d[r * k + i];
+    L.cur[i] = a.cur_idx[r * k + i];
+    if (!rescore) L.cur_d[i] = a.cur_d[r * k + i];
   }
-  if (lane < c) {
-    const int g = lane;
+  for (int g = lane; g < c; g += 32) {
     int v;
     if constexpr (kPre) {
       v = a.cand[r * c + g];
@@ -136,60 +156,61 @@ __global__ void __launch_bounds__(kWarps * 32)
     } else {
       v = a.extra[r * a.extra_w + a.col[g]];
     }
-    s_cand[w][g] = v;
-    s_gat[w][g] = static_cast<int>(repro::clamp_row(v, a.n));
+    L.cand[g] = v;
+    L.gat[g] = static_cast<int>(repro::clamp_row(v, a.n));
   }
   __syncwarp();
 
   // dedup before scoring: an invalid candidate is +inf and is never read
-  bool valid = false;
-  if (lane < c) {
-    const int v = s_cand[w][lane];
-    valid = v != repro::kSentinel && v != row;
+  for (int g = lane; g < c; g += 32) {
+    const int v = L.cand[g];
+    bool valid = v != repro::kSentinel && v != row;
     if constexpr (kPre) {
-      if (a.cand_valid != nullptr) valid = valid && a.cand_valid[r * c + lane];
+      if (a.cand_valid != nullptr) valid = valid && a.cand_valid[r * c + g];
     } else if (a.active != nullptr) {
-      valid = valid && a.active[s_gat[w][lane]];
+      valid = valid && a.active[L.gat[g]];
     }
-    for (int i = 0; i < k; ++i) valid = valid && v != s_cur[w][i];
-    for (int j = 0; j < lane; ++j) valid = valid && v != s_cand[w][j];
+    for (int i = 0; i < k; ++i) valid = valid && v != L.cur[i];
+    for (int j = 0; j < g; ++j) valid = valid && v != L.cand[j];
+    L.ok[g] = valid;
   }
-  const unsigned vmask = __ballot_sync(repro::kFullMask, valid);
+  __syncwarp();
 
   for (int g = 0; g < c; ++g) {
     float d = INFINITY;
-    if ((vmask >> g) & 1u) {
-      d = repro::warp_row_sqdist(a.x, a.m, q, s_gat[w][g], lane, vec4);
+    if (L.ok[g]) {
+      d = repro::warp_row_sqdist(a.x, a.m, q, L.gat[g], lane, vec4);
     }
-    if (lane == 0) s_cand_d[w][g] = d;
+    if (lane == 0) L.cand_d[g] = d;
   }
   if (rescore) {
     for (int i = 0; i < k; ++i) {
       float d = INFINITY;
       if (a.cur_valid[r * k + i]) {
         d = repro::warp_row_sqdist(a.x, a.m, q,
-                                   repro::clamp_row(s_cur[w][i], a.n), lane,
+                                   repro::clamp_row(L.cur[i], a.n), lane,
                                    vec4);
       }
-      if (lane == 0) s_cur_d[w][i] = d;
+      if (lane == 0) L.cur_d[i] = d;
     }
   }
   __syncwarp();
 
-  const bool imp = lane < c && s_cand_d[w][lane] < s_cur_d[w][k - 1];
+  bool imp = false;
+  for (int g = lane; g < c; g += 32) imp = imp || L.cand_d[g] < L.cur_d[k - 1];
   const unsigned imask = __ballot_sync(repro::kFullMask, imp);
   if (lane == 0) a.improved[r] = imask != 0u;
 
   const int total = k + c;
   for (int e = lane; e < total; e += 32) {
-    const float de = e < k ? s_cur_d[w][e] : s_cand_d[w][e - k];
+    const float de = e < k ? L.cur_d[e] : L.cand_d[e - k];
     int rank = 0;
     for (int j = 0; j < total; ++j) {
-      const float dj = j < k ? s_cur_d[w][j] : s_cand_d[w][j - k];
+      const float dj = j < k ? L.cur_d[j] : L.cand_d[j - k];
       rank += (dj < de) || (dj == de && j < e);
     }
     if (rank < k) {
-      a.new_idx[r * k + rank] = e < k ? s_cur[w][e] : s_cand[w][e - k];
+      a.new_idx[r * k + rank] = e < k ? L.cur[e] : L.cand[e - k];
       a.new_d[r * k + rank] = de;
     }
   }
@@ -202,7 +223,8 @@ int launch(const MergeArgs* args, cudaStream_t stream) {
   }
   if (args->b > 0) {
     const int64_t blocks = (args->b + kWarps - 1) / kWarps;
-    knn_merge_kernel<kPre><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+    const size_t smem = kWarps * warp_smem_bytes(args->k, args->c);
+    knn_merge_kernel<kPre><<<static_cast<unsigned>(blocks), kWarps * 32, smem,
                              stream>>>(*args,
                                        repro::can_vec4(args->x, args->m));
   }

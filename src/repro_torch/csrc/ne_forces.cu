@@ -28,6 +28,11 @@
 // A non-finite term sets a flag that turns the whole output into NaN.
 // The price is reading the index and coefficient arrays twice.
 //
+// Width: d = 1..4, 8, 16 and 32 (the main path's 2, the latents pipeline's
+// 8, the dry run's 32) run a compile-time width held in registers; any
+// other d runs the same kernels with a runtime width in tiles of 4 columns
+// (Width<0>), which re-sums each edge's |delta|^2 once per tile.
+//
 // B5 and B7: edge-emitting forces, one kernel template in two input modes.
 //
 // B5 replaces src/repro/kernels/ne_forces/kernel.py, ne_forces_gather_pallas
@@ -48,7 +53,7 @@
 // (B, K, d) rows); the arithmetic is B3's, a few dozen flops per edge.
 //
 // Design: one warp per row, lane k handles edges k, k + 32, ... with the
-// shared edge_term, so edges are written coalesced (lane-contiguous) and agg
+// shared edge_scalars, so edges are written coalesced (lane-contiguous) and agg
 // and wsum are warp sums.  The TPU kernel's SMEM index slabs and
 // double-buffered row DMAs have no counterpart: the per-lane loads of
 // neighbour rows are served by L2, where the (N, d) embedding stays.
@@ -120,31 +125,77 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The force term of one edge (the JAX package's _edge_wsum, per edge).
-template <int D>
-__device__ __forceinline__ float edge_term(int mode, float alpha,
-                                           const float (&yq)[D],
-                                           const float* __restrict__ yt,
-                                           float coef, float (&edge)[D]) {
-  float delta[D];
-  float d2 = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    delta[c] = __ldg(yt + c) - yq[c];
-    d2 += delta[c] * delta[c];
-  }
+// The per-edge scalars of the force (the JAX package's _edge_wsum): with
+// base = 1 + d2/alpha the edge is s * delta (attraction) or s * (-delta)
+// (repulsion); the return value is the edge's wsum term.
+__device__ __forceinline__ float edge_scalars(int mode, float alpha, float d2,
+                                              float coef, float& s) {
   const float base = 1.f + d2 / alpha;
   if (mode == 0) {
-    const float s = coef * (1.f / base);
-#pragma unroll
-    for (int c = 0; c < D; ++c) edge[c] = s * delta[c];
+    s = coef * (1.f / base);
     return s;
   }
   const float logb = logf(base);
-  const float s = coef * expf(-(alpha + 1.f) * logb);
-#pragma unroll
-  for (int c = 0; c < D; ++c) edge[c] = s * (-delta[c]);
+  s = coef * expf(-(alpha + 1.f) * logb);
   return coef * expf(-alpha * logb);
+}
+
+__device__ __forceinline__ float edge_comp(int mode, float s, float delta) {
+  return mode == 0 ? s * delta : s * (-delta);
+}
+
+// Width of the embedding.  D > 0 is a compile-time width held in registers
+// as one tile (the main path, d = 2).  D = 0 is any runtime width d >= 1,
+// walked in tiles of kTile columns: each edge's |delta|^2 is summed over
+// the whole row once per tile, and a tile's columns are accumulated as the
+// fixed-width path accumulates all of them.
+constexpr int kTile = 4;
+
+template <int D>
+struct Width {
+  static constexpr int kT = D > 0 ? D : kTile;
+  int d;
+  __device__ __forceinline__ int cols() const { return D > 0 ? D : d; }
+  __device__ __forceinline__ int tile(int c0) const {
+    return D > 0 ? D : min(kTile, d - c0);
+  }
+};
+
+// |delta|^2 of one edge and the tile [c0, c0 + w) of delta.  With D > 0
+// the tile is the whole row and yq holds it; with D = 0 the row sum reads
+// both rows (L1/L2-resident) and yq holds the tile only.
+template <int D>
+__device__ __forceinline__ float edge_delta(const Width<D>& wd, int c0, int w,
+                                            const float* __restrict__ yq_row,
+                                            const float (&yq)[Width<D>::kT],
+                                            const float* __restrict__ yt,
+                                            float (&delta)[Width<D>::kT]) {
+  float d2 = 0.f;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      delta[c] = __ldg(yt + c) - yq[c];
+      d2 += delta[c] * delta[c];
+    }
+  } else {
+    for (int c = 0; c < wd.d; ++c) {
+      const float dl = __ldg(yt + c) - __ldg(yq_row + c);
+      d2 += dl * dl;
+    }
+#pragma unroll
+    for (int c = 0; c < kTile; ++c)
+      delta[c] = c < w ? __ldg(yt + c0 + c) - yq[c] : 0.f;
+  }
+  return d2;
+}
+
+template <int D>
+__device__ __forceinline__ void load_tile(const Width<D>& wd, int c0, int w,
+                                          const float* __restrict__ yq_row,
+                                          float (&yq)[Width<D>::kT]) {
+#pragma unroll
+  for (int c = 0; c < Width<D>::kT; ++c)
+    yq[c] = c < w ? yq_row[c0 + c] : 0.f;
 }
 
 // Scale of segment s: 2^(62 - e) with 2^e > (largest |term|) x (#terms).
@@ -168,152 +219,187 @@ __device__ __forceinline__ unsigned long long to_fixed(float v, double scale) {
 // kPass 2: fixed-point accumulation of the terms.
 template <int D, int kPass>
 __global__ void __launch_bounds__(kWarps * 32)
-    forces_rows_kernel(const ForceArgs a) {
+    forces_rows_kernel(const ForceArgs a, const Width<D> wd) {
+  constexpr int kT = Width<D>::kT;
   const int lane = threadIdx.x & 31;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (r >= a.b) return;  // uniform per warp
   const float alpha = *a.alpha;
+  const int dd = wd.cols();
   const int64_t q = repro::clamp_row(a.qid[r], a.n);
-  float yq[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) yq[c] = a.y[q * D + c];
+  const float* yq_row = a.y + q * dd;
+  float yq[kT];
+  if constexpr (D > 0) load_tile(wd, 0, D, yq_row, yq);
   bool bad = false;
   for (int s = 0; s < a.n_seg; ++s) {
     const bool back = a.seg_back[s] != 0;
+    const int mode = a.seg_mode[s];
     const double scale = kPass == 2 ? seg_scale(a, s) : 1.0;
-    float agg[D];
+    float ws = 0.f, emax = 0.f, amax = 0.f;
+    for (int c0 = 0; c0 < dd; c0 += kT) {
+      const int w = wd.tile(c0);
+      if constexpr (D == 0) load_tile(wd, c0, w, yq_row, yq);
+      float agg[kT];
 #pragma unroll
-    for (int c = 0; c < D; ++c) agg[c] = 0.f;
-    float ws = 0.f, emax = 0.f;
-    for (int i = lane; i < a.seg_size[s]; i += 32) {
-      const int64_t j = r * a.k + a.seg_start[s] + i;
-      const int64_t t = repro::clamp_row(a.nbr[j], a.n);
-      float e[D];
-      const float wt = edge_term<D>(a.seg_mode[s], alpha, yq, a.y + t * D,
-                                    a.coef[j], e);
+      for (int c = 0; c < kT; ++c) agg[c] = 0.f;
+      for (int i = lane; i < a.seg_size[s]; i += 32) {
+        const int64_t j = r * a.k + a.seg_start[s] + i;
+        const int64_t t = repro::clamp_row(a.nbr[j], a.n);
+        float delta[kT];
+        const float d2 = edge_delta(wd, c0, w, yq_row, yq, a.y + t * dd,
+                                    delta);
+        float sc;
+        const float wt = edge_scalars(mode, alpha, d2, a.coef[j], sc);
 #pragma unroll
-      for (int c = 0; c < D; ++c) {
-        agg[c] += e[c];
-        if (kPass == 1) {
-          emax = fmaxf(emax, fabsf(e[c]));
-          bad = bad || !isfinite(e[c]);
-        } else if (back) {
-          atomicAdd(a.acc + (s * a.n + t) * D + c, to_fixed(-e[c], scale));
+        for (int c = 0; c < kT; ++c) {
+          if (c >= w) break;
+          const float e = edge_comp(mode, sc, delta[c]);
+          agg[c] += e;
+          if (kPass == 1) {
+            emax = fmaxf(emax, fabsf(e));
+            bad = bad || !isfinite(e);
+          } else if (back) {
+            atomicAdd(a.acc + (s * a.n + t) * dd + c0 + c,
+                      to_fixed(-e, scale));
+          }
+        }
+        if (c0 == 0) {
+          ws += wt;
+          if (kPass == 1) bad = bad || !isfinite(wt);
         }
       }
-      ws += wt;
-      if (kPass == 1) bad = bad || !isfinite(wt);
-    }
 #pragma unroll
-    for (int c = 0; c < D; ++c) agg[c] = warp_sum(agg[c]);
+      for (int c = 0; c < kT; ++c) agg[c] = warp_sum(agg[c]);
+      if (kPass == 1) {
+#pragma unroll
+        for (int c = 0; c < kT; ++c) {
+          if (c >= w) break;
+          amax = fmaxf(amax, fabsf(agg[c]));
+          bad = bad || !isfinite(agg[c]);
+        }
+      } else if (lane == 0) {
+#pragma unroll
+        for (int c = 0; c < kT; ++c) {
+          if (c >= w) break;
+          atomicAdd(a.acc + (s * a.n + q) * dd + c0 + c,
+                    to_fixed(agg[c], scale));
+        }
+      }
+    }
     if (kPass == 1) {
       ws = warp_sum(ws);
-      float m = back ? emax : 0.f;
-#pragma unroll
-      for (int c = 0; c < D; ++c) {
-        m = fmaxf(m, fabsf(agg[c]));
-        bad = bad || !isfinite(agg[c]);
-      }
+      float m = fmaxf(back ? emax : 0.f, amax);
       m = warp_max(m);
       if (lane == 0) {
         a.wsum[s * a.b + r] = ws;
         atomicMax(a.max_bits + s, __float_as_uint(m));
       }
-    } else if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < D; ++c)
-        atomicAdd(a.acc + (s * a.n + q) * D + c, to_fixed(agg[c], scale));
     }
   }
   if (kPass == 1 && __any_sync(repro::kFullMask, bad) && lane == 0)
     atomicOr(a.nonfinite, 1);
 }
 
-template <int D>
-__global__ void forces_unpack_kernel(const ForceArgs a) {
+__global__ void forces_unpack_kernel(const ForceArgs a, int d) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= a.n_seg * a.n * D) return;
+  if (i >= a.n_seg * a.n * d) return;
   if (*a.nonfinite) {
     a.out[i] = NAN;
     return;
   }
-  const int s = static_cast<int>(i / (a.n * D));
+  const int s = static_cast<int>(i / (a.n * d));
   a.out[i] = static_cast<float>(
       static_cast<double>(static_cast<long long>(a.acc[i])) / seg_scale(a, s));
 }
 
 template <int D>
-int launch(const ForceArgs& a, cudaStream_t stream) {
+int launch(const ForceArgs& a, int d, cudaStream_t stream) {
+  const Width<D> wd{d};
   if (a.b > 0) {
     const unsigned rows = static_cast<unsigned>((a.b + kWarps - 1) / kWarps);
-    forces_rows_kernel<D, 1><<<rows, kWarps * 32, 0, stream>>>(a);
+    forces_rows_kernel<D, 1><<<rows, kWarps * 32, 0, stream>>>(a, wd);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    forces_rows_kernel<D, 2><<<rows, kWarps * 32, 0, stream>>>(a);
+    forces_rows_kernel<D, 2><<<rows, kWarps * 32, 0, stream>>>(a, wd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t total = a.n_seg * a.n * D;
+  const int64_t total = a.n_seg * a.n * d;
   if (total > 0) {
-    forces_unpack_kernel<D>
-        <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(a);
+    forces_unpack_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                           stream>>>(a, d);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kGathered>
 __global__ void __launch_bounds__(kWarps * 32)
-    forces_edges_kernel(const EdgeArgs a) {
+    forces_edges_kernel(const EdgeArgs a, const Width<D> wd) {
+  constexpr int kT = Width<D>::kT;
   const int lane = threadIdx.x & 31;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (r >= a.b) return;  // uniform per warp
   const float alpha = *a.alpha;
-  const float* yrow =
-      kGathered ? a.x + repro::clamp_row(a.qid[r], a.n) * D : a.y + r * D;
-  float yq[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) yq[c] = yrow[c];
+  const int dd = wd.cols();
+  const float* yq_row =
+      kGathered ? a.x + repro::clamp_row(a.qid[r], a.n) * dd : a.y + r * dd;
+  float yq[kT];
+  if constexpr (D > 0) load_tile(wd, 0, D, yq_row, yq);
   for (int s = 0; s < a.n_seg; ++s) {
     const int size = a.seg_size[s];
+    const int mode = a.seg_mode[s];
     float* edge_out = a.edge[s];
-    float agg[D];
-#pragma unroll
-    for (int c = 0; c < D; ++c) agg[c] = 0.f;
     float ws = 0.f;
-    for (int i = lane; i < size; i += 32) {
-      const int64_t j = r * a.k + a.seg_start[s] + i;
-      const float* yt = kGathered
-                            ? a.x + repro::clamp_row(a.nbr_idx[j], a.n) * D
-                            : a.nbr + j * D;
-      float e[D];
-      ws += edge_term<D>(a.seg_mode[s], alpha, yq, yt, a.coef[j], e);
+    for (int c0 = 0; c0 < dd; c0 += kT) {
+      const int w = wd.tile(c0);
+      if constexpr (D == 0) load_tile(wd, c0, w, yq_row, yq);
+      float agg[kT];
 #pragma unroll
-      for (int c = 0; c < D; ++c) {
-        agg[c] += e[c];
-        if (edge_out != nullptr) edge_out[(r * size + i) * D + c] = e[c];
+      for (int c = 0; c < kT; ++c) agg[c] = 0.f;
+      for (int i = lane; i < size; i += 32) {
+        const int64_t j = r * a.k + a.seg_start[s] + i;
+        const float* yt = kGathered
+                              ? a.x + repro::clamp_row(a.nbr_idx[j], a.n) * dd
+                              : a.nbr + j * dd;
+        float delta[kT];
+        const float d2 = edge_delta(wd, c0, w, yq_row, yq, yt, delta);
+        float sc;
+        const float wt = edge_scalars(mode, alpha, d2, a.coef[j], sc);
+        if (c0 == 0) ws += wt;
+#pragma unroll
+        for (int c = 0; c < kT; ++c) {
+          if (c >= w) break;
+          const float e = edge_comp(mode, sc, delta[c]);
+          agg[c] += e;
+          if (edge_out != nullptr) edge_out[(r * size + i) * dd + c0 + c] = e;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kT; ++c) agg[c] = warp_sum(agg[c]);
+      if (lane == 0) {
+#pragma unroll
+        for (int c = 0; c < kT; ++c) {
+          if (c >= w) break;
+          a.agg[(s * a.b + r) * dd + c0 + c] = agg[c];
+        }
       }
     }
-#pragma unroll
-    for (int c = 0; c < D; ++c) agg[c] = warp_sum(agg[c]);
     ws = warp_sum(ws);
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < D; ++c) a.agg[(s * a.b + r) * D + c] = agg[c];
-      a.wsum[s * a.b + r] = ws;
-    }
+    if (lane == 0) a.wsum[s * a.b + r] = ws;
   }
 }
 
 template <int D>
-int launch_edges(const EdgeArgs& a, cudaStream_t stream) {
+int launch_edges(const EdgeArgs& a, int d, cudaStream_t stream) {
+  const Width<D> wd{d};
   if (a.b > 0) {
     const unsigned rows = static_cast<unsigned>((a.b + kWarps - 1) / kWarps);
     if (a.x != nullptr) {
-      forces_edges_kernel<D, true><<<rows, kWarps * 32, 0, stream>>>(a);
+      forces_edges_kernel<D, true><<<rows, kWarps * 32, 0, stream>>>(a, wd);
     } else {
-      forces_edges_kernel<D, false><<<rows, kWarps * 32, 0, stream>>>(a);
+      forces_edges_kernel<D, false><<<rows, kWarps * 32, 0, stream>>>(a, wd);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -323,28 +409,34 @@ int launch_edges(const EdgeArgs& a, cudaStream_t stream) {
 
 extern "C" int repro_ne_forces_edges(const EdgeArgs* args, int d,
                                      cudaStream_t stream) {
-  if (args->n_seg < 1 || args->n_seg > kMaxSeg) {
+  if (args->n_seg < 1 || args->n_seg > kMaxSeg || d < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (d) {
-    case 1: return launch_edges<1>(*args, stream);
-    case 2: return launch_edges<2>(*args, stream);
-    case 3: return launch_edges<3>(*args, stream);
-    case 4: return launch_edges<4>(*args, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return launch_edges<1>(*args, d, stream);
+    case 2: return launch_edges<2>(*args, d, stream);
+    case 3: return launch_edges<3>(*args, d, stream);
+    case 4: return launch_edges<4>(*args, d, stream);
+    case 8: return launch_edges<8>(*args, d, stream);
+    case 16: return launch_edges<16>(*args, d, stream);
+    case 32: return launch_edges<32>(*args, d, stream);
+    default: return launch_edges<0>(*args, d, stream);
   }
 }
 
 extern "C" int repro_ne_forces_scatter(const ForceArgs* args, int d,
                                        cudaStream_t stream) {
-  if (args->n_seg < 1 || args->n_seg > kMaxSeg) {
+  if (args->n_seg < 1 || args->n_seg > kMaxSeg || d < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (d) {
-    case 1: return launch<1>(*args, stream);
-    case 2: return launch<2>(*args, stream);
-    case 3: return launch<3>(*args, stream);
-    case 4: return launch<4>(*args, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return launch<1>(*args, d, stream);
+    case 2: return launch<2>(*args, d, stream);
+    case 3: return launch<3>(*args, d, stream);
+    case 4: return launch<4>(*args, d, stream);
+    case 8: return launch<8>(*args, d, stream);
+    case 16: return launch<16>(*args, d, stream);
+    case 32: return launch<32>(*args, d, stream);
+    default: return launch<0>(*args, d, stream);
   }
 }

@@ -19,6 +19,8 @@ LAUNCHES = {
     "pairwise_sqdist": 0,
     "ne_forces": 0,
     "ne_forces_gather": 0,
+    "segment_sum": 0,
+    "flash_attention": 0,
 }
 
 

@@ -11,7 +11,9 @@ from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.knn_merge.ref import (knn_merge_cand_ref,
                                                knn_merge_ref)
 
-_MAX_K, _MAX_C, _MAX_TABLES = 64, 32, 2
+# the kernel's bounds (csrc/knn_merge.cu kMaxK, kMaxC); FUnc-SNE's
+# validate_inputs states them for a config before any launch
+MAX_K, MAX_C, _MAX_TABLES = 1024, 128, 2
 _KINDS = {"uniform": 0, "one_hop": 1, "two_hop": 2, "extra": 3}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -26,8 +28,8 @@ class _MergeArgs(ctypes.Structure):
         ("cand", _P), ("cand_valid", _P),
         ("second_n", _I64 * 2), ("first_w", _I * 2), ("second_w", _I * 2),
         ("extra_w", _I),
-        ("kind", _I * _MAX_C), ("tab", _I * _MAX_C), ("sec", _I * _MAX_C),
-        ("col", _I * _MAX_C),
+        ("kind", _I * MAX_C), ("tab", _I * MAX_C), ("sec", _I * MAX_C),
+        ("col", _I * MAX_C),
         ("new_idx", _P), ("new_d", _P), ("improved", _P),
     ]
 
@@ -47,8 +49,8 @@ def _merge_args(x, qid, cur_idx, cur_d, cur_valid, c):
     req(qid.dtype == torch.int32 and qid.shape == (b,) and qid.is_contiguous(),
         "qid must be a contiguous (B,) int32 tensor")
     req(cur_idx.dtype == torch.int32 and cur_idx.is_contiguous()
-        and 1 <= k <= _MAX_K, f"cur_idx must be contiguous int32 (B, K<={_MAX_K})")
-    req(1 <= c <= _MAX_C, f"need 1..{_MAX_C} candidate slots, got {c}")
+        and 1 <= k <= MAX_K, f"cur_idx must be contiguous int32 (B, K<={MAX_K})")
+    req(1 <= c <= MAX_C, f"need 1..{MAX_C} candidate slots, got {c}")
     if cur_d is not None:
         req(cur_d.dtype == torch.float32 and cur_d.shape == (b, k)
             and cur_d.is_contiguous(), "cur_d must be contiguous (B, K) float32")

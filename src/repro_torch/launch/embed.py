@@ -93,7 +93,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     for _ in range(n_chunks):
-        st, _ = chunk(st, Xt, hp)
+        st, _, _ = chunk(st, Xt, hp)
     _sync(dev)
     dt = time.perf_counter() - t0
 

@@ -174,7 +174,7 @@ def test_legacy_chunk_of_ten_matches_jax(name):
     jst_c, _, jm = jchunk(jax.tree.map(jnp.array, jst), J(X), jhp)
     tchunk = tf.make_chunked_step(tcfg, 10, schedule=tf.default_schedule,
                                   n_iter=10)
-    tst_c, tm = tchunk(tst, T(X), thp)
+    tst_c, _, tm = tchunk(tst, T(X), thp)
     _assert_states_match(jst_c, tst_c)
     assert int(tm.step) == int(jm.step) == 10
     assert int(tm.bad_step) == int(jm.bad_step) == -1
@@ -211,7 +211,7 @@ def test_fit_legacy_from_init_state_matches_jax_start():
     jst = jf.init_state(jax.random.PRNGKey(4), J(X), jcfg, perplexity=20.0)
     jst = jax.jit(lambda s, x, h: jf.funcsne_step(jcfg, s, x, h))(
         jst, J(X), jf.default_schedule(0, 1, jhp))
-    tst = tf.fit(X, cfg=tcfg, n_iter=1, seed=4, hparams=thp, device="cpu")
+    tst, _ = tf.fit(X, cfg=tcfg, n_iter=1, seed=4, hparams=thp, device="cpu")
     a, b = _fields(jst), {k: v.numpy() for k, v in tst._asdict().items()}
     for name in ("hd_idx", "ld_idx", "new_flag", "step"):
         np.testing.assert_array_equal(b[name], a[name], err_msg=name)
@@ -221,8 +221,8 @@ def test_fit_legacy_from_init_state_matches_jax_start():
 # which entry points of ``Ops`` a step of each path calls (the gate fires)
 PATH_OPS = {
     "legacy": {"knn_merge", "ne_forces_scatter"},
-    "gather_off": {"pairwise_sqdist", "ne_forces"},
-    "scatter_off": {"knn_merge", "ne_forces_gather"},
+    "gather_off": {"pairwise_sqdist", "ne_forces", "segment_sum"},
+    "scatter_off": {"knn_merge", "ne_forces_gather", "segment_sum"},
     "merge_off": {"pairwise_sqdist_gather", "ne_forces_scatter"},
     "rev_refresh1": {"knn_merge", "ne_forces_scatter"},
     "rev_refresh10": {"knn_merge", "ne_forces_scatter"},

@@ -113,7 +113,7 @@ def test_chunk_of_ten_matches_jax_and_gates_agree():
     jst_c, _, jm = jchunk(jax.tree.map(jnp.array, jst), jnp.asarray(X), jhp)
     tchunk = tf.make_chunked_step(tcfg, T, schedule=tf.default_schedule,
                                   n_iter=T)
-    tst_c, tm = tchunk(tst, torch.from_numpy(X), thp)
+    tst_c, _, tm = tchunk(tst, torch.from_numpy(X), thp)
     _assert_states_match(jst_c, tst_c)
     assert int(tm.step) == int(jm.step) == T
     assert int(tm.bad_step) == int(jm.bad_step) == -1
@@ -159,8 +159,8 @@ def test_fit_200_steps_auc_within_band_of_jax():
     tst0 = convert.state_from_numpy(_fields(jst0), tcfg, "cpu")
     jst, _ = jf.fit(jnp.asarray(X), cfg=jcfg, n_iter=200, hparams=jhp,
                     state=jst0, chunk_size=50)
-    tst = tf.fit(X, cfg=tcfg, n_iter=200, state=tst0, chunk_size=50,
-                 device="cpu")
+    tst, _ = tf.fit(X, cfg=tcfg, n_iter=200, state=tst0, chunk_size=50,
+                    device="cpu")
     q_j = float(j_quality(jnp.asarray(X), jst.Y))
     q_t = float(t_quality(torch.from_numpy(X), tst.Y))
     assert q_j > 0.1, q_j              # an embedding, not noise (~0)
@@ -182,7 +182,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: t_embed.main(["--n", "64", "--iters", "1"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    st = tf.fit(X, cfg=cfg, n_iter=2, device="cpu")
+    st, _ = tf.fit(X, cfg=cfg, n_iter=2, device="cpu")
     assert st.Y.device.type == "cpu" and int(st.step) == 2
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.state_from_numpy(convert.state_to_numpy(st), cfg, "cuda")
@@ -197,8 +197,7 @@ def test_unported_options_raise():
         cfg = tf.FuncSNEConfig(n_points=10, dim_hd=3, **kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
     X = np.zeros((20, 3), np.float32)
-    for kw in (dict(callback=print), dict(snapshot_every=5),
-               dict(early_stop=0.1), dict(auto_rescale=0.1),
+    for kw in (dict(callback=print), dict(early_stop=0.1), dict(auto_rescale=0.1),
                dict(resilience=object()), dict(resume_from="ckpt")):
         with pytest.raises(NotImplementedError):
             tf.fit(X, device="cpu", **kw)

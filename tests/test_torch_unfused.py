@@ -237,7 +237,7 @@ def test_unfused_chunk_of_ten_matches_jax(name):
     jst_c, _, jm = jchunk(jax.tree.map(jnp.array, jst), J(X), jhp)
     tchunk = tf.make_chunked_step(tcfg, 10, schedule=tf.default_schedule,
                                   n_iter=10)
-    tst_c, tm = tchunk(tst, T(X), thp)
+    tst_c, _, tm = tchunk(tst, T(X), thp)
     _assert_states_match(jst_c, tst_c)
     assert int(tm.step) == int(jm.step) == 10
     assert int(tm.bad_step) == int(jm.bad_step) == -1
@@ -269,12 +269,12 @@ def test_unfused_symmetrisation_conserves_momentum(flag):
 # which entry points of ``Ops`` a step of each path calls (the gate fires)
 PATH_OPS = {
     "default": {"knn_merge_cand", "ne_forces_scatter"},
-    "gather_off": {"pairwise_sqdist", "ne_forces"},
-    "scatter_off": {"knn_merge_cand", "ne_forces_gather"},
+    "gather_off": {"pairwise_sqdist", "ne_forces", "segment_sum"},
+    "scatter_off": {"knn_merge_cand", "ne_forces_gather", "segment_sum"},
     "merge_off": {"pairwise_sqdist_gather", "ne_forces_scatter"},
     "rev_refresh1": {"knn_merge_cand", "ne_forces_scatter"},
     "rev_refresh10": {"knn_merge_cand", "ne_forces_scatter"},
-    "rev_gather_off": {"pairwise_sqdist", "ne_forces"},
+    "rev_gather_off": {"pairwise_sqdist", "ne_forces", "segment_sum"},
 }
 
 
