@@ -42,19 +42,29 @@ checks them:
       update fraction falls; recall above RECALL_MIN), iterations/s, the
       recall after NND_SHORT iterations, and the time of B4 at NND's shape.
 
-  (h) B8, causal GQA flash attention, alone: MusicGen-large's prefill shape
-      (B 4, S 1500, 32 heads of 64, bf16), Gemma2-2b's (B 1, S 8192, 8
-      query and 4 KV heads of 256, softcap 50) with window 4096 and 0, and
-      a float32 case, each against its plain version (TOL_ATTN_F32, one
-      bf16 ulp), timed beside its bound and, without softcap or window,
-      ``F.scaled_dot_product_attention`` as the yardstick;
+  (h) B8, causal GQA flash attention, alone, through ``flash_attention``:
+      MusicGen-large's prefill shape (B 4, S 1500, 32 heads of 64, bf16),
+      Qwen2-7B's (B 1, S 4096, 28 query and 4 KV heads of 128, bf16),
+      Gemma2-2b's (B 1, S 8192, 8 query and 4 KV heads of 256, softcap 50)
+      with window 4096 and 0, and a float32 case.  bf16 at D 64, 128 and
+      256 takes the tensor-core kernel (wgmma, TMA), float32 the SIMT
+      kernel (each case checks which one launched); each kernel against
+      the plain version (TOL_ATTN_F32, one bf16 ulp), and the bf16 cases
+      time both kernels in turns (plain, tensor-core, SIMT, tensor-core)
+      beside the bound and, without softcap or window,
+      ``F.scaled_dot_product_attention`` as the yardstick.  Checked too: a
+      ragged S (1,499) and the model's (B, S, H, D) layout through strides,
+      at each D of the tensor-core kernel;
   (i) the latents pipeline of ``repro_torch.examples.embed_latents`` with
       MusicGen-large at full width and depth (48 layers, d_model 2048,
       float32 params from ``init_params(0)`` by threefry on the card, bf16
       compute): one batch of 64 through B8 against one through the plain
-      ``flash_chunked`` (TOL_LATENTS), B8 at that path's shape, then with
-      the launch counters set to 0 the forward over N_SEQ sequences of 24
-      frames (B8 48 times a batch, nothing else; tokens/s), PCA 16; the
+      ``flash_chunked`` (TOL_LATENTS), both B8 kernels at that path's
+      shape, then with the launch counters set to 0 the forward over N_SEQ
+      sequences of 24 frames (B8's tensor-core kernel 48 times a batch,
+      its SIMT kernel never, nothing else; tokens/s), one batch of it in
+      float32 compute with the counters at 0 (the SIMT kernel 48 times,
+      nothing else), PCA 16; the
       fit's B1, B2 and B3 at its shapes (dim_hd 16, dim_ld 8) from
       init_state and one step against their plain versions, and one step
       kernels vs plain; then with the counters at 0 ``fit`` with dim_ld 8
@@ -122,17 +132,34 @@ TOL_STEP_REL = 1e-4            # Y / vel / zhat after one step
 # plus that float32 tolerance
 TOL_ATTN_F32 = 1e-5
 # (name, B, Hq, Hkv, S, D, dtype, softcap, window, timing reps) of phase (h):
-# MusicGen-large's prefill of 30 s of 50 Hz frames, Gemma2-2b's local and
-# global layers at 8k, and a float32 case
+# MusicGen-large's prefill of 30 s of 50 Hz frames, Qwen2-7B's at 4k,
+# Gemma2-2b's local and global layers at 8k (bf16: the tensor-core kernel,
+# timed beside the SIMT kernel), and a float32 case (the SIMT kernel)
 ATTN_CASES = (
     ("flash_attention_musicgen", 4, 32, 32, 1500, 64, torch.bfloat16, 0.0, 0,
      20),
+    ("flash_attention_qwen2", 1, 28, 4, 4096, 128, torch.bfloat16, 0.0, 0,
+     10),
     ("flash_attention_gemma2_w4096", 1, 8, 4, 8192, 256, torch.bfloat16, 50.0,
      4096, 5),
     ("flash_attention_gemma2_w0", 1, 8, 4, 8192, 256, torch.bfloat16, 50.0, 0,
      5),
     ("flash_attention_fp32", 4, 32, 32, 1500, 64, torch.float32, 0.0, 0, 20),
 )
+# (name, B, Hq, Hkv, S, D, softcap, window, layout) of phase (h), checked
+# only: S that fills no tile, and the model's (B, S, H, D) layout through
+# strides, at each D of the tensor-core kernel, in bf16.  At D = 256 a CTA
+# holds 128 query rows, and S = 1,050 leaves the last CTA's second
+# warpgroup no row
+ATTN_CHECKS = (
+    ("ragged_d64", 2, 8, 4, 1499, 64, 0.0, 0, "bhsd"),
+    ("ragged_d128_window", 1, 8, 2, 1499, 128, 0.0, 700, "bhsd"),
+    ("strided_d128", 2, 16, 4, 1500, 128, 0.0, 0, "bshd"),
+    ("strided_d256_softcap_window", 1, 8, 4, 1050, 256, 50.0, 300, "bshd"),
+)
+B8_SOURCE = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+             "simt": "src/repro_torch/csrc/flash_attention.cu"}
+B8_REPLACES = "src/repro/kernels/flash_attention/kernel.py:86"
 # phase (i): sequences of 24 frames through MusicGen-large (98,304 tokens)
 N_SEQ = 4096
 # hidden states and pooled latents of one batch, B8 against the plain
@@ -173,6 +200,26 @@ def time_ms(fn, reps):
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean ms per call of ``fn`` replayed from a CUDA graph of ``reps``
+    calls: the device's time without the host's cost of each launch, for a
+    call too short to hide it."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    g.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -275,6 +322,7 @@ def main():
         pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
     from repro_torch.kernels.segment_sum.ops import segment_runs, segment_sum
     from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.knn_merge.ops import MAX_C, MAX_K
@@ -945,34 +993,110 @@ def main():
              launches_g["knn_merge_hd"], "[g]")
 
     # ---- (h) B8 alone ------------------------------------------------------
-    b8 = {}
+    def b8_rows(name, fns, reps, bytes_, flops, errs, library=None,
+                tag="[h]", timer=time_ms):
+        """Time B8's kernels in turns (plain, tensor-core, SIMT,
+        tensor-core) on one card, then the library call, the kernels and
+        the library call with ``timer``; one row per kernel in ``fns``
+        (route -> call; "plain" the plain version), launches filled in by
+        phase (i)."""
+        plain_ms = time_ms(fns["plain"], max(2, reps // 10))
+        t = {}
+        if "wgmma" in fns:
+            t["wgmma"] = [timer(fns["wgmma"], reps)]
+        t["simt"] = [timer(fns["simt"], max(2, reps // 5))]
+        if "wgmma" in fns:
+            t["wgmma"].append(timer(fns["wgmma"], reps))
+        lib_ms = None if library is None else timer(library, reps)
+        peak = BF16_FLOPS_PER_S if fns["dtype"] == torch.bfloat16 \
+            else FP32_FLOPS_PER_S
+        b_ms, b_by = bound(bytes_, flops, peak)
+        parts = []
+        for route, ms in t.items():
+            mean = sum(ms) / len(ms)
+            row = name if route == "wgmma" or "wgmma" not in fns \
+                else f"{name}_simt"
+            b8[row] = {"name": row, "route": "cuda",
+                       "source": B8_SOURCE[route], "replaces": B8_REPLACES,
+                       "launches": 0, "max_abs_err": errs[route], "ms": mean,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": lib_ms}
+            b8_route[row] = route
+            out.append(b8[row])
+            parts.append(f"{'tensor-core' if route == 'wgmma' else 'SIMT'} "
+                         + " / ".join(f"{m:.4f}" for m in ms) + " ms ("
+                         f"{flops / mean / 1e9:.1f} TFLOP/s, {b_ms / mean:.1%}"
+                         " of the bound)")
+        log(f"{tag} {name}: " + "; ".join(parts) + f"; bound {b_ms:.4f} ms "
+            f"by {b_by}; plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f"; SDPA {lib_ms:.4f} ms")
+            + ("" if "wgmma" not in t else
+               f"; SIMT / tensor-core {t['simt'][0] / min(t['wgmma']):.1f}x"))
+
+    b8, b8_route = {}, {}          # B8's rows by name, and their kernel
     gen = torch.Generator(device=dev).manual_seed(7)
     for name, b, hq, hkv, s_len, d_h, dt, cap, win, reps in ATTN_CASES:
         q, k, v = (torch.randn((b, h, s_len, d_h), generator=gen, device=dev)
                    .to(dt) for h in (hq, hkv, hkv))
+        route = flash_ops.kernel_route(dt, d_h)
+        check(route == ("wgmma" if dt == torch.bfloat16 else "simt"),
+              f"{name}: B8 route {route}")
+        kernels.reset_launches()
         got = flash_attention(q, k, v, softcap=cap, window=win)
+        check(kernels.LAUNCHES[f"flash_attention_{route}"] == 1 and sum(
+            kernels.LAUNCHES.values()) == 1, f"{name}: launches "
+            f"{ {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_} }")
         want = flash_attention_ref(q, k, v, softcap=cap, window=win)
-        err = attn_close(got, want, name)
+        errs = {route: attn_close(got, want, name)}
+        kw = dict(scale=d_h ** -0.5, softcap=cap, window=win)
+        fns = {"plain": lambda q=q, k=k, v=v, cap=cap, win=win:
+               flash_attention_ref(q, k, v, softcap=cap, window=win),
+               "dtype": dt}
+        buf = torch.empty_like(q)
+        fns["simt"] = lambda q=q, k=k, v=v, buf=buf, kw=kw: \
+            flash_ops.launch_simt(q, k, v, buf, **kw)
+        if route == "wgmma":
+            fns["wgmma"] = lambda q=q, k=k, v=v, buf=buf, kw=kw: \
+                flash_ops.launch_wgmma(q, k, v, buf, **kw)
+            fns["simt"]()
+            errs["simt"] = attn_close(buf, want, f"{name} SIMT")
         lib = None
         if not cap and not win:
             lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
-        entry(name, "src/repro_torch/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention/kernel.py:86",
-              lambda q=q, k=k, v=v, cap=cap, win=win: flash_attention(
-                  q, k, v, softcap=cap, window=win),
-              lambda q=q, k=k, v=v, cap=cap, win=win: flash_attention_ref(
-                  q, k, v, softcap=cap, window=win),
-              reps, nbytes(q, k, v, got),
-              4.0 * b * hq * d_h * attn_pairs(s_len, win), err, 0,
-              library=lib, tag="[h]",
-              peak=BF16_FLOPS_PER_S if dt == torch.bfloat16
-              else FP32_FLOPS_PER_S)
-        b8[name] = out[-1]
+        b8_rows(name, fns, reps, nbytes(q, k, v, got),
+                4.0 * b * hq * d_h * attn_pairs(s_len, win), errs,
+                library=lib)
         log(f"    {name}: B {b}, S {s_len}, Hq {hq}, Hkv {hkv}, D {d_h}, "
-            f"{str(dt)[6:]}, softcap {cap}, window {win}: max abs err "
+            f"{str(dt)[6:]}, softcap {cap}, window {win}: the "
+            f"{'tensor-core' if route == 'wgmma' else 'SIMT'} kernel "
+            f"through flash_attention, max abs err {errs[route]:.3e} "
+            "against the plain version"
+            + ("" if "simt" not in errs or route == "simt" else
+               f" (the SIMT kernel {errs['simt']:.3e})"))
+        del q, k, v, got, want, buf, fns
+    for name, b, hq, hkv, s_len, d_h, cap, win, layout in ATTN_CHECKS:
+        shape = (lambda h: (b, s_len, h, d_h)) if layout == "bshd" else \
+            (lambda h: (b, h, s_len, d_h))
+        q, k, v = (torch.randn(shape(h), generator=gen, device=dev).bfloat16()
+                   for h in (hq, hkv, hkv))
+        kernels.reset_launches()
+        if layout == "bshd":
+            got = flash_chunked(q, k, v, scale=d_h ** -0.5, cap=cap,
+                                window=win).transpose(1, 2)
+            q, k, v = (t_.transpose(1, 2) for t_ in (q, k, v))
+        else:
+            got = flash_attention(q, k, v, softcap=cap, window=win)
+        check(kernels.LAUNCHES["flash_attention_wgmma"] == 1
+              and sum(kernels.LAUNCHES.values()) == 1,
+              f"{name}: launches {kernels.LAUNCHES}")
+        err = attn_close(got, flash_attention_ref(q, k, v, softcap=cap,
+                                                  window=win), name)
+        log(f"[h] {name}: B {b}, S {s_len}, Hq {hq}, Hkv {hkv}, D {d_h}, "
+            f"softcap {cap}, window {win}, {layout} layout (q strides "
+            f"{tuple(q.stride())}): the tensor-core kernel, max abs err "
             f"{err:.3e} against the plain version")
-        del q, k, v, got, want
+        del q, k, v, got
     torch.cuda.empty_cache()
 
     # ---- (i) MusicGen-large's hidden states into an 8-D FUnc-SNE ------------
@@ -1014,22 +1138,36 @@ def main():
     check(rel_h <= TOL_LATENTS and rel_pool <= TOL_LATENTS,
           f"latents, kernels vs plain: {rel_h}, {rel_pool}")
     q, k, v, kw = calls[0]
-    err = attn_close(flash_chunked(q, k, v, **kw),
-                     flash_chunked_ref(q, k, v, **kw), "B8 at the latents shape")
+    want = flash_chunked_ref(q, k, v, **kw)
+    qt, kt, vt = (t_.transpose(1, 2) for t_ in (q, k, v))
+    buf = torch.empty_like(qt)
+    b_kw = dict(scale=kw["scale"], softcap=kw["cap"], window=kw["window"])
+    errs = {"wgmma": attn_close(flash_chunked(q, k, v, **kw), want,
+                                "B8 at the latents shape")}
+    flash_ops.launch_simt(qt, kt, vt, buf, **b_kw)
+    errs["simt"] = attn_close(buf.transpose(1, 2), want,
+                              "B8 SIMT at the latents shape")
     b_, s_, hq_, d_ = q.shape
-    entry("flash_attention_latents", "src/repro_torch/csrc/flash_attention.cu",
-          "src/repro/kernels/flash_attention/kernel.py:86",
-          lambda: flash_chunked(q, k, v, **kw),
-          lambda: flash_chunked_ref(q, k, v, **kw), 50,
-          nbytes(q, k, v) + q.numel() * q.element_size(),
-          4.0 * b_ * hq_ * d_ * attn_pairs(s_, 0), err, 0,
-          library=lambda: F.scaled_dot_product_attention(
-              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-              is_causal=True, enable_gqa=True), tag="[i]",
-          peak=BF16_FLOPS_PER_S)
-    b8["flash_attention_latents"] = out[-1]
+    # at this shape a launch takes the host longer than the kernel takes
+    # the card, so the kernels and SDPA are timed from CUDA graphs
+    b8_rows("flash_attention_latents",
+            {"plain": lambda: flash_chunked_ref(q, k, v, **kw),
+             "wgmma": lambda: flash_ops.launch_wgmma(qt, kt, vt, buf, **b_kw),
+             "simt": lambda: flash_ops.launch_simt(qt, kt, vt, buf, **b_kw),
+             "dtype": q.dtype}, 50,
+            nbytes(q, k, v) + q.numel() * q.element_size(),
+            4.0 * b_ * hq_ * d_ * attn_pairs(s_, 0), errs,
+            library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), tag="[i]",
+            timer=graph_ms)
+    log(f"    host-issued, one call at a time: the tensor-core kernel "
+        f"through flash_chunked {time_ms(lambda: flash_chunked(q, k, v, **kw), 50):.4f}"
+        f" ms, the SIMT kernel "
+        f"{time_ms(lambda: flash_ops.launch_simt(qt, kt, vt, buf, **b_kw), 50):.4f} ms")
     log(f"    (layer 0's call: q, k, v {tuple(q.shape)} in the (B, S, H, D) "
-        f"layout, strides {q.stride()}; max abs err {err:.3e})")
+        f"layout, strides {q.stride()}; max abs err {errs['wgmma']:.3e}, the "
+        f"SIMT kernel {errs['simt']:.3e})")
+    del want, qt, kt, vt, buf
     del h_k, h_p, x0, calls, q, k, v
 
     kernels.reset_launches()
@@ -1040,13 +1178,32 @@ def main():
     t_fwd = time.perf_counter() - t0
     launches_i = dict(kernels.LAUNCHES)
     n_batches = -(-N_SEQ // embed_latents.BATCH)
-    want_i = {"flash_attention": cfg_m.n_layers * n_batches}
+    want_i = {"flash_attention_wgmma": cfg_m.n_layers * n_batches}
     check(launches_i == {k_: want_i.get(k_, 0) for k_ in launches_i},
           f"forward launches {launches_i}, expected {want_i}")
     check(H.shape == (N_SEQ, cfg_m.d_model) and bool(torch.isfinite(H).all()),
           "latents not finite")
-    for row in b8.values():
-        row["launches"] = launches_i["flash_attention"]
+    # the same forward in float32 compute, one batch: B8's SIMT kernel on
+    # a path of its own (float32 takes it at any D)
+    x0 = torch.from_numpy(frames[:embed_latents.BATCH]).to(dev)
+    kernels.reset_launches()
+    h32 = LMModel(dataclasses.replace(cfg_m, compute_dtype="float32")) \
+        .hidden_states(params, x0)
+    torch.cuda.synchronize()
+    launches_f32 = dict(kernels.LAUNCHES)
+    want_f32 = {"flash_attention_simt": cfg_m.n_layers}
+    check(launches_f32 == {k_: want_f32.get(k_, 0) for k_ in launches_f32},
+          f"float32 forward launches {launches_f32}, expected {want_f32}")
+    check(h32.dtype == torch.float32 and bool(torch.isfinite(h32).all()),
+          "float32 hidden states not finite")
+    log(f"[i] one batch in float32 compute: B8's SIMT kernel launched "
+        f"{launches_f32['flash_attention_simt']} times, nothing else; "
+        f"hidden states finite")
+    del h32, x0
+    for name, row in b8.items():
+        row["launches"] = (launches_i["flash_attention_wgmma"]
+                           if b8_route[name] == "wgmma"
+                           else launches_f32["flash_attention_simt"])
     # where a batch's time goes: device time by kernel over two batches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1067,9 +1224,9 @@ def main():
     n_tok = N_SEQ * embed_latents.SEQ
     log(f"[i] forward: {N_SEQ} sequences x {embed_latents.SEQ} frames "
         f"({n_tok} tokens) in {n_batches} batches: {t_fwd:.2f}s = "
-        f"{n_tok / t_fwd:.0f} tokens/s; B8 launched "
-        f"{launches_i['flash_attention']} times ({cfg_m.n_layers} per "
-        f"batch), nothing else; latents finite")
+        f"{n_tok / t_fwd:.0f} tokens/s; B8's tensor-core kernel launched "
+        f"{launches_i['flash_attention_wgmma']} times ({cfg_m.n_layers} per "
+        f"batch), its SIMT kernel 0, nothing else; latents finite")
     del params, model, frames
     torch.cuda.empty_cache()
 

@@ -18,6 +18,14 @@ namespace repro {
 constexpr int kSentinel = 0x7fffffff;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// Error codes of the C entries beyond cudaError_t's range (see
+// repro_error_string): a TMA tensor map that cuTensorMapEncodeTiled refused
+// (kErrTensorMap + its CUresult), no driver entry point for it, and a
+// kernel whose register count leaves setmaxnreg short.
+constexpr int kErrTensorMap = 1 << 20;
+constexpr int kErrNoEncodeTiled = kErrTensorMap - 1;
+constexpr int kErrRegisterPool = kErrTensorMap - 2;
+
 __device__ __forceinline__ uint32_t hash_mix(uint32_t h) {
   h ^= h >> 16;
   h *= 0x21f0aaadu;

@@ -1,12 +1,14 @@
-// B8: causal GQA flash attention (online softmax), fp32 and bf16.
+// B8: causal GQA flash attention (online softmax), the SIMT kernel: fp32
+// and bf16, any D from 8 to 256 in steps of 8.  The port launches it for
+// float32 and for the D that the tensor-core kernel
+// (flash_attention_wgmma.cu: bf16 at D 64, 128 and 256) does not take;
+// kernels/flash_attention/ops.py chooses by dtype and D.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 //   flash_attention_pallas (body _flash_kernel).  No module of the JAX
 //   package calls it; its docstring names it the TPU runtime replacement of
 //   the blocking of repro.models.attention.flash_chunked, so in the port
-//   flash_chunked launches it on a CUDA tensor: every layer of
-//   LMModel.hidden_states (MusicGen-large: 48 layers, 32 heads of 64, S =
-//   24 in the latents pipeline, up to S = 1500 for 30 s of frames).
+//   flash_chunked launches B8 on a CUDA tensor.
 //
 // Computes, for query head h reading KV head h / (Hq / Hkv):
 //   s = (q . k) * scale (default D^-0.5); s = softcap * tanh(s / softcap)
@@ -14,17 +16,16 @@
 //   window, col > row - window; online softmax with an fp32 running max,
 //   denominator and accumulator; a fully masked row gives 0; the output is
 //   written in q's dtype.  S of any length: the last tiles are masked, not
-//   padded.  Any D from 8 to 256 in steps of 8.  The four tensors are read
-//   and written through (b, h, s) strides with a unit d stride, so the
-//   model's (B, S, H, D) layout needs no transpose copy.
+//   padded.  The four tensors are read and written through (b, h, s)
+//   strides with a unit d stride, so the model's (B, S, H, D) layout needs
+//   no transpose copy.
 //
-// Bound on the H100: operations.  Causal attention does 2 B Hq S^2 D flops
-//   (QK^T and PV over the lower triangle) against 2 B S D (Hq + 2 Hkv)
-//   bytes-per-element of q, k, v, o: at MusicGen's prefill shape (B 4, S
-//   1500, 32 heads of 64, bf16) 36.9 GFLOP, 0.037 ms at 989 TFLOP/s bf16,
-//   against 0.015 ms for the bytes.  This first kernel does not reach the
-//   tensor cores: it computes in fp32 FMA (67 TFLOP/s peak), so it cannot
-//   come within 15x of that bound; wgmma with TMA-fed tiles is later work.
+// Bound on the H100: operations.  Causal attention does 4 B Hq D pairs
+//   flops (QK^T and PV over the lower triangle): in float32 at 67 TFLOP/s
+//   outside the tensor cores (MusicGen's prefill shape, B 4, S 1500, 32
+//   heads of 64: 36.9 GFLOP, 0.55 ms).  This kernel computes in fp32 FMA
+//   whatever the input type, so in bf16 it cannot come within 15x of the
+//   989 TFLOP/s bound; that case is the tensor-core kernel's.
 //
 // Design: one block per (query tile of kBQ = 32 rows, head, batch) -- the
 //   TPU's sequential "arbitrary" KV grid axis becomes a loop over KV tiles
@@ -42,29 +43,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
-
-// Mirrored field for field by the ctypes Structure in
-// repro_torch/kernels/flash_attention/ops.py.  Strides are in elements, in
-// the order (b, h, s); the d stride is 1.
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int64_t q_st[3];
-  int64_t k_st[3];
-  int64_t v_st[3];
-  int64_t o_st[3];
-  int b;
-  int hq;
-  int hkv;
-  int s;
-  int d;
-  int window;
-  float scale;
-  float softcap;
-  int bf16;      // 0: float32, 1: bfloat16 (all four tensors)
-};
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -107,7 +86,7 @@ __host__ __device__ inline size_t smem_bytes(int d) {
 // NI = ceil(D / 32): output columns per lane.
 template <typename T, int NI>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_kernel(const FlashArgs a) {
+    flash_simt_kernel(const FlashArgs a) {
   extern __shared__ __align__(16) float sm[];
   const int D = a.d;
   const int ldk = D + 4;
@@ -234,11 +213,11 @@ template <typename T, int NI>
 int launch(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.d);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, NI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_simt_kernel<T, NI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.s + kBQ - 1) / kBQ, a.hq, a.b);
-  flash_kernel<T, NI><<<grid, kWarps * 32, smem, stream>>>(a);
+  flash_simt_kernel<T, NI><<<grid, kWarps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,8 +238,8 @@ int dispatch(const FlashArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int repro_flash_attention(const FlashArgs* args,
-                                     cudaStream_t stream) {
+extern "C" int repro_flash_attention_simt(const FlashArgs* args,
+                                          cudaStream_t stream) {
   const FlashArgs& a = *args;
   if (a.d < 8 || a.d > 256 || a.d % 8 || a.hkv < 1 || a.hq % a.hkv ||
       a.b < 1 || a.hq < 1 || a.b > 65535 || a.hq > 65535) {

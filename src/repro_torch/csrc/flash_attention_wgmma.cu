@@ -1,0 +1,739 @@
+// B8 on Hopper's tensor cores: causal GQA flash attention for bf16 q, k, v
+// and out at D = 64, 128 and 256, with wgmma fed by TMA through an mbarrier
+// ring.
+//
+// Replaces: src/repro/kernels/flash_attention/kernel.py:86,
+//   flash_attention_pallas (body _flash_kernel), for bf16 at those D: the
+//   heads of MusicGen-large (64), Qwen2-7B (128) and Gemma2-2b (256).  The
+//   SIMT kernel (flash_attention.cu) keeps float32 and the other D;
+//   kernels/flash_attention/ops.py chooses between the two by dtype and D.
+//   It computes what the SIMT kernel computes (causal mask, optional
+//   window and softcap, GQA, fp32 online softmax, a fully masked row gives
+//   0, output rounded to bf16), through the same (b, h, s) strides.
+//
+// Bound on the H100: operations.  Causal attention does 4 B Hq D pairs
+//   flops (QK^T and PV over the (row, col) pairs the mask keeps), at 989
+//   TFLOP/s in bf16: MusicGen's prefill shape (B 4, S 1500, 32 heads of 64)
+//   is 36.9 GFLOP, 0.037 ms, against 0.015 ms for the bytes of q, k, v and
+//   out.  What the design does about it: every product runs on the tensor
+//   cores (wgmma), the next K and V tiles arrive by TMA while the current
+//   one is computed, and scores and probabilities never leave registers.
+//   Two costs stay above the bound: P.V runs twice (the split below), 1.5x
+//   the tensor-core work of one pass; and the softmax's exp, max and sum
+//   per score run on the SM's FP32 and MUFU units, which at D = 64 take
+//   longer than the tile's wgmma (no ping-pong of two warpgroups here).
+//
+// Design (TMA, wgmma, an mbarrier pipeline, warp specialisation):
+//   * Grid: one CTA per (query tile, head, batch), the query tiles with the
+//     most KV tiles launched first.  A query tile is 64 rows per consumer
+//     warpgroup: one consumer warpgroup at D = 64 and 128 (two CTAs per SM),
+//     two at D = 256 (one CTA per SM: its tiles fill shared memory).  One
+//     more warpgroup is the producer: one of its threads issues every TMA
+//     load; setmaxnreg drops it to 24 registers and raises the consumers to
+//     232 (240 with two consumer warpgroups).
+//   * Loads: the Q tile once, then K and V tiles of kBK = 64 keys through a
+//     ring of kStages = 2 stages.  Each stage has a full mbarrier for K and
+//     one for V, which TMA completes on the stage's byte count, and an empty
+//     mbarrier on which each consumer warp arrives once its warpgroup's
+//     wgmma have read the stage.  A tile is one box of 64 rows x 64 columns (128 bytes)
+//     per 64 columns of D, in 128-byte swizzle: the layout the wgmma
+//     descriptors name.  Shared memory: Q 8 KB x (D / 64) per consumer
+//     warpgroup, K and V 8 KB x (D / 64) per stage each: 40 KB at D = 64,
+//     80 KB at 128, 192 KB at 256, plus 1 KB of alignment and the barriers.
+//   * Tensor maps: 4-D over the strided view (D, S, H, B), encoded on the
+//     host with cuTensorMapEncodeTiled.  The library gets that driver
+//     function at run time through cudaGetDriverEntryPoint(ByVersion), so
+//     it does not link libcuda.  They reach the kernel as
+//     __grid_constant__ CUtensorMap.  TMA zero-fills rows past S, and the
+//     ragged last tile is masked as in the SIMT kernel.  TMA needs 16-byte
+//     strides and base addresses: the wrapper raises on others.
+//   * S = Q K^T: wgmma m64n64k16, bf16 x bf16 -> fp32, A and B both from
+//     shared memory and both K-major.  The products of bf16 values are exact
+//     in fp32; only the order of the sum differs from the plain version.
+//   * Softmax in registers, in the accumulator's layout (a thread holds rows
+//     r and r + 8 of its warp's 16, two adjacent columns of every 8):
+//     scale, softcap, then the mask, only on the tiles that cross the
+//     diagonal or the window's edge.  Tiles wholly above the diagonal or
+//     outside the window are not computed.  Row max and sum by shuffles
+//     within the quad that holds a row; exp(x - max) as one FFMA and one
+//     ex2; fp32 running max and denominator, the latter summed from fp32 p.
+//   * O += P V with P split in two: p_hi = bf16(p), p_lo = bf16(p - p_hi),
+//     two register-A wgmma m64nDk16 against the same V tile (B MN-major,
+//     through the instruction's transpose bit) into one fp32 accumulator.
+//     p_hi + p_lo carries p to about 2^-16 relative.  One bf16 P (2^-9)
+//     fails chip_smoke phase (h)'s check against the plain version, which
+//     keeps p in fp32, in 8% of the outputs at MusicGen's prefill shape.
+//   * Epilogue: O / max(l, 1e-30), rounded to bf16 (RN), stored through the
+//     out strides.
+//   * A wait on an mbarrier that has not completed after 2^34 cycles (about
+//     10 s) traps, so a fault in the pipeline ends the launch with an error
+//     instead of hanging the card.
+#include <cuda.h>            // CUtensorMap and its enums; no libcuda call
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+#include "flash_attention.cuh"
+
+namespace {
+
+constexpr int kBK = 64;                  // keys per KV tile
+constexpr int kStages = 2;               // KV tiles in flight
+constexpr int kBox = 64;                 // rows and columns of a TMA box
+constexpr int kBoxBytes = kBox * 128;    // 64 rows of 128 bytes
+constexpr int kProducerRegs = 24;
+constexpr float kNeg = -1e30f;           // the JAX kernel's _NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr long long kHangCycles = 1LL << 34;
+
+// One instantiation: head width and consumer warpgroups, from which the
+// CTAs per SM (the launch bound) and the consumers' registers follow.
+template <int D_, int NWG_>
+struct Cfg {
+  static constexpr int D = D_;
+  static constexpr int NWG = NWG_;
+  static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
+  static constexpr int kConsumerRegs = NWG == 1 ? 232 : 240;
+  static constexpr int kBlocks = D / 64;           // boxes across D
+  static constexpr int kTileBytes = kBlocks * kBoxBytes;   // one K or V tile
+  static constexpr int kQBytes = NWG * kTileBytes;
+  static constexpr int kBars = 1 + 3 * kStages;    // q; k_full, v_full, empty
+  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kSmemAlloc = 1024 + kSmem + 8 * kBars;
+  static constexpr int kThreads = (NWG + 1) * 128;
+};
+
+// ---- PTX wrappers ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (PTX ISA,
+// mbarrier.try_wait.parity: a fresh barrier is in phase 0, so parity 1
+// passes at once).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    const long long t = clock64();
+    if (t0 == 0) {
+      t0 = t;
+    } else if (t - t0 > kHangCycles) {
+      __trap();
+    }
+  }
+}
+
+// One box of the 4-D map at coordinates (d, s, h, b) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the wgmma's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (layout type 1
+// in bits 62-63), start address in 16-byte units; LBO and SBO in bytes.
+// K-major (Q, K): SBO = 1024, the stride of 8 rows of 128 bytes; LBO is not
+// read.  MN-major (V): SBO = 1024 between groups of 8 keys, LBO = the
+// stride between 64-column boxes along D.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// ---- wgmma: each shape with its accumulator registers written out ----
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (64 x 16, smem), both
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, bf16 registers) * B (16 x 64, smem,
+// MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16, bf16 registers) * B (16 x 128, smem,
+// MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// D (64 x 256, fp32) (+)= A (64 x 16, bf16 registers) * B (16 x 256, smem,
+// MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, "
+      "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(o, a, db, 1);
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128(o, a, db, 1);
+  } else {
+    wgmma_rs_n256(o, a, db, 1);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(repro::kFullMask, v, 1));
+  return fmaxf(v, __shfl_xor_sync(repro::kFullMask, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(repro::kFullMask, v, 1);
+  return v + __shfl_xor_sync(repro::kFullMask, v, 2);
+}
+
+// (a, b) -> hi = bf16x2(a, b), lo = bf16x2 of what hi leaves of (a, b).
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t q() const { return base; }
+  __device__ uint32_t k_full(int s) const { return base + 8 * (1 + s); }
+  __device__ uint32_t v_full(int s) const {
+    return base + 8 * (1 + kStages + s);
+  }
+  __device__ uint32_t empty(int s) const {
+    return base + 8 * (1 + 2 * kStages + s);
+  }
+};
+
+// The tiles one CTA walks: from the first the window reaches to the one
+// holding its last row.
+struct Walk {
+  int q0;        // the CTA's first query row
+  int t_begin;   // its first KV tile
+  int n_tiles;
+};
+
+__device__ __forceinline__ Walk walk(const FlashArgs& a, int rows) {
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rows;   // heaviest first
+  const int last_row = min(q0 + rows, a.s) - 1;
+  const int t_begin = a.window > 0 ? max(0, q0 - a.window + 1) / kBK : 0;
+  return {q0, t_begin, last_row / kBK - t_begin + 1};
+}
+
+// The producer: one thread loads Q, then streams the K and V tiles.
+template <class C>
+__device__ __forceinline__ void produce(const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv,
+                                        const FlashArgs& a, uint32_t sq,
+                                        uint32_t sk, uint32_t sv, Bars bars,
+                                        Walk w) {
+  constexpr int NWG = C::NWG;
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const int hk = h / (a.hq / a.hkv);
+  mbar_expect_tx(bars.q(), C::kQBytes);
+#pragma unroll
+  for (int g = 0; g < NWG; ++g)
+#pragma unroll
+    for (int c = 0; c < C::kBlocks; ++c)
+      tma_load(sq + (g * C::kBlocks + c) * kBoxBytes, tq, bars.q(), c * kBox,
+               w.q0 + g * 64, h, bb);
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int st = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int c0 = (w.t_begin + i) * kBK;
+    mbar_wait(bars.empty(st), parity ^ 1);
+    mbar_expect_tx(bars.k_full(st), C::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < C::kBlocks; ++c)
+      tma_load(sk + st * C::kTileBytes + c * kBoxBytes, tk, bars.k_full(st),
+               c * kBox, c0, hk, bb);
+    mbar_expect_tx(bars.v_full(st), C::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < C::kBlocks; ++c)
+      tma_load(sv + st * C::kTileBytes + c * kBoxBytes, tv, bars.v_full(st),
+               c * kBox, c0, hk, bb);
+  }
+}
+
+// A consumer warpgroup: 64 query rows through every tile of the walk.
+template <class C>
+__device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
+                                        uint32_t sk, uint32_t sv, Bars bars,
+                                        Walk w, int wg) {
+  constexpr int D = C::D;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int r_lo = w.q0 + wg * 64;
+  const int r_hi = min(r_lo + 63, a.s - 1);
+  const bool has_rows = r_lo < a.s;
+  const int row0 = r_lo + warp * 16 + lane / 4;   // and row0 + 8
+  const int row1 = row0 + 8;
+  const int colq = (lane % 4) * 2;    // the thread's first column of each 8
+  const uint32_t q_base = sq + wg * C::kTileBytes;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  mbar_wait(bars.q(), 0);
+
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int st = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int c0 = (w.t_begin + i) * kBK;
+    mbar_wait(bars.k_full(st), parity);
+    // whether any (row, col) of this warpgroup's rows and this tile is
+    // kept: the same for all 128 threads, as wgmma needs
+    const bool live = has_rows && c0 <= r_hi &&
+                      (a.window <= 0 || c0 + kBK - 1 > r_lo - a.window);
+    if (live) {
+      float sc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+      const uint32_t k_base = sk + st * C::kTileBytes;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < C::kBlocks; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(sc, sw128_desc(q_base + c * kBoxBytes + kk * 32, 16,
+                                      1024),
+                       sw128_desc(k_base + c * kBoxBytes + kk * 32, 16, 1024),
+                       (c | kk) != 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // sc[4 j + e]: row e < 2 ? row0 : row1, column c0 + 8 j + colq + e % 2
+      // scale and softcap, then the mask, each a loop of its own behind a
+      // branch that is the same for the warpgroup: inside one loop the
+      // compiler turns both branches into selects and computes tanhf for
+      // every score of every tile
+      if (a.softcap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          sc[j] = a.softcap * tanhf(sc[j] * a.scale / a.softcap);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] *= a.scale;
+      }
+      if (c0 + kBK - 1 > r_lo || (a.window > 0 && c0 <= r_hi - a.window)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? row0 : row1;
+            const int col = c0 + 8 * j + colq + (e & 1);
+            const bool ok = col <= row &&
+                            (a.window <= 0 || col > row - a.window);
+            if (!ok) sc[4 * j + e] = kNeg;
+          }
+      }
+      float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float corr0 = m0 > kNeg / 2 ? exp2f((m0 - mn0) * kLog2e) : 0.f;
+      const float corr1 = m1 > kNeg / 2 ? exp2f((m1 - mn1) * kLog2e) : 0.f;
+      // p = exp(x - max) as exp2(x log2e - max log2e): one FFMA and one
+      // ex2 a score.  A row with nothing kept yet (max = kNeg) subtracts 0,
+      // so that its kNeg scores give exp2(-1.4e30) = 0, as masked ones do
+      // in a live row
+      const float mb0 = mn0 > kNeg / 2 ? mn0 * kLog2e : 0.f;
+      const float mb1 = mn1 > kNeg / 2 ? mn1 * kLog2e : 0.f;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              exp2f(fmaf(sc[4 * j + e], kLog2e, -(e < 2 ? mb0 : mb1)));
+          sc[4 * j + e] = p;
+          if (e < 2) {
+            sum0 += p;
+          } else {
+            sum1 += p;
+          }
+        }
+      l0 = corr0 * l0 + quad_sum(sum0);
+      l1 = corr1 * l1 + quad_sum(sum1);
+      m0 = mn0;
+      m1 = mn1;
+
+      // A fragment of k-step kk, register r: sc[8 kk + 2 r], sc[8 kk + 2 r + 1]
+      uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
+                       p_hi[kk][r], p_lo[kk][r]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr0;
+        o[4 * j + 1] *= corr0;
+        o[4 * j + 2] *= corr1;
+        o[4 * j + 3] *= corr1;
+      }
+
+      mbar_wait(bars.v_full(st), parity);
+      const uint32_t v_base = sv + st * C::kTileBytes;
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(o, p_hi[kk], sw128_desc(v_base + kk * 16 * 128, kBoxBytes,
+                                            1024));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(o, p_lo[kk], sw128_desc(v_base + kk * 16 * 128, kBoxBytes,
+                                            1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+    } else {
+      // not computed; waited for all the same, so that every consumer
+      // thread arrives once per stage and round and no load is in flight
+      // when the stage is refilled or the CTA exits
+      mbar_wait(bars.v_full(st), parity);
+    }
+    // one arrival a warp, once the warp is past the wait that ends the
+    // warpgroup's reads of the stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars.empty(st));
+  }
+
+  if (!has_rows) return;
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) +
+                      blockIdx.z * a.o_st[0] + blockIdx.y * a.o_st[1];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + colq;
+    if (row0 < a.s)
+      *reinterpret_cast<__nv_bfloat162*>(og + row0 * a.o_st[2] + col) =
+          __floats2bfloat162_rn(o[4 * j] / den0, o[4 * j + 1] / den0);
+    if (row1 < a.s)
+      *reinterpret_cast<__nv_bfloat162*>(og + row1 * a.o_st[2] + col) =
+          __floats2bfloat162_rn(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const FlashArgs a) {
+  constexpr int NWG = C::NWG;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + C::kQBytes;
+  const uint32_t sv = sk + kStages * C::kTileBytes;
+  const Bars bars{sv + kStages * C::kTileBytes};
+  const Walk w = walk(a, 64 * NWG);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars.q(), 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars.k_full(s), 1);
+      mbar_init(bars.v_full(s), 1);
+      mbar_init(bars.empty(s), NWG * 4);      // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // one if-else for the two roles, never reconverging (setmaxnreg)
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x % 128 == 0)
+      produce<C>(&tq, &tk, &tv, a, sq, sk, sv, bars, w);
+  } else {
+    reg_alloc<C::kConsumerRegs>();
+    consume<C>(a, sq, sk, sv, bars, w, wg);
+  }
+}
+
+// ---- host ---------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (D, S, H, B) of one (B, H, S, D) view, boxes of 64 x 64.
+int make_map(CUtensorMap* map, const void* ptr, const int64_t st[3], int d,
+             int s, int h, int b) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return repro::kErrNoEncodeTiled;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {kBox, kBox, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : repro::kErrTensorMap + static_cast<int>(r);
+}
+
+template <class C>
+int launch(const FlashArgs& a, cudaStream_t stream) {
+  constexpr int D = C::D, NWG = C::NWG;
+  auto kernel = flash_wgmma_kernel<C>;
+  // setmaxnreg.inc waits until the producer's released registers cover it:
+  // refuse to launch a build whose register count would never let it
+  static int regs = 0;
+  if (regs == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmemAlloc);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    regs = attr.numRegs;
+  }
+  if (regs - kProducerRegs < NWG * (C::kConsumerRegs - regs))
+    return repro::kErrRegisterPool;
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, a.q, a.q_st, D, a.s, a.hq, a.b);
+  if (!err) err = make_map(&tk, a.k, a.k_st, D, a.s, a.hkv, a.b);
+  if (!err) err = make_map(&tv, a.v, a.v_st, D, a.s, a.hkv, a.b);
+  if (err) return err;
+  const dim3 grid((a.s + 64 * NWG - 1) / (64 * NWG), a.hq, a.b);
+  kernel<<<grid, C::kThreads, C::kSmemAlloc, stream>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int repro_flash_attention_wgmma(const FlashArgs* args,
+                                           cudaStream_t stream) {
+  const FlashArgs& a = *args;
+  if (!a.bf16 || a.hkv < 1 || a.hq % a.hkv || a.b < 1 || a.hq < 1 ||
+      a.b > 65535 || a.hq > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.s < 1) return 0;
+  switch (a.d) {
+    case 64: return launch<Cfg<64, 1>>(a, stream);
+    case 128: return launch<Cfg<128, 1>>(a, stream);
+    case 256: return launch<Cfg<256, 2>>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

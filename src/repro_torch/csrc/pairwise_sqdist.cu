@@ -33,6 +33,8 @@
 // (warp_sqdist), reading c[b, j, :] in place of x[cand[b, j], :].  The
 // TPU kernel's grid axis over M, which carries the partial sum from one
 // grid step to the next, becomes the lanes' stride loop inside the warp.
+#include <cstdio>
+
 #include "common.cuh"
 
 namespace {
@@ -95,5 +97,15 @@ extern "C" int repro_pairwise_sqdist_gather(const float* x, int64_t n,
 }
 
 extern "C" const char* repro_error_string(int err) {
+  static char msg[96];
+  if (err == repro::kErrNoEncodeTiled)
+    return "cuTensorMapEncodeTiled: no driver entry point";
+  if (err == repro::kErrRegisterPool)
+    return "kernel built with too few registers for its setmaxnreg split";
+  if (err >= repro::kErrTensorMap) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused the map: "
+             "CUresult %d", err - repro::kErrTensorMap);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -20,7 +20,8 @@ LAUNCHES = {
     "ne_forces": 0,
     "ne_forces_gather": 0,
     "segment_sum": 0,
-    "flash_attention": 0,
+    "flash_attention_wgmma": 0,
+    "flash_attention_simt": 0,
 }
 
 

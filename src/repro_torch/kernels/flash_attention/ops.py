@@ -1,5 +1,14 @@
-"""Causal GQA flash attention (B8): the plain version on the CPU, the CUDA
-kernel of ``csrc/flash_attention.cu`` on the card."""
+"""Causal GQA flash attention (B8): the plain version on the CPU, one of two
+CUDA kernels on the card.
+
+``kernel_route(dtype, d)`` chooses between the kernels, by dtype and D
+alone: bfloat16 at D in ``WGMMA_D`` runs the tensor-core kernel of
+``csrc/flash_attention_wgmma.cu`` (``launch_wgmma``, counted under
+``LAUNCHES["flash_attention_wgmma"]``); float32, and bfloat16 at any other
+D, run the SIMT kernel of ``csrc/flash_attention.cu`` (``launch_simt``,
+``LAUNCHES["flash_attention_simt"]``).  Neither stands in for the other: a
+tensor that the chosen kernel does not take raises.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -11,10 +20,14 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_D = (64, 128, 256)     # MusicGen-large, Qwen2-7B, Gemma2-2b
+# TMA reads q, k and v by 16-byte strides from 16-byte aligned addresses;
+# out is held to the same
+_TMA_ALIGN = 16
 
 
 class _FlashArgs(ctypes.Structure):
-    """Field for field the ``FlashArgs`` struct of csrc/flash_attention.cu."""
+    """Field for field the ``FlashArgs`` struct of csrc/flash_attention.cuh."""
     _fields_ = [
         ("q", _P), ("k", _P), ("v", _P), ("o", _P),
         ("q_st", _I64 * 3), ("k_st", _I64 * 3), ("v_st", _I64 * 3),
@@ -24,11 +37,13 @@ class _FlashArgs(ctypes.Structure):
     ]
 
 
-def launch(q, k, v, out, *, scale: float, softcap: float = 0.0,
-           window: int = 0) -> None:
-    """Run B8 into ``out``.  All four are (B, H, S, D) views on one card,
-    any (b, h, s) strides with a unit d stride: q and out (B, Hq, S, D),
-    k and v (B, Hkv, S, D); one dtype, float32 or bfloat16."""
+def kernel_route(dtype: torch.dtype, d: int) -> str:
+    """'wgmma' or 'simt': the kernel that a CUDA tensor of this dtype and
+    head width D launches."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_D else "simt"
+
+
+def _check_common(q, k, v, out):
     req = _build.require
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -38,19 +53,66 @@ def launch(q, k, v, out, *, scale: float, softcap: float = 0.0,
         req(tuple(t.shape) == (b, h, s, d),
             f"{name} must be ({b}, {h}, {s}, {d}), got {tuple(t.shape)}")
     req(hkv >= 1 and hq % hkv == 0, f"Hq = {hq} must be a multiple of Hkv = {hkv}")
-    req(8 <= d <= 256 and d % 8 == 0, f"D = {d}: the kernel takes 8..256 in steps of 8")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         req(t.stride(3) == 1, f"{name} must have a unit stride over D")
+
+
+def _run(entry: str, q, k, v, out, scale, softcap, window) -> None:
+    b, hq, s, d = q.shape
     a = _FlashArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
-                   o=out.data_ptr(), b=b, hq=hq, hkv=hkv, s=s, d=d,
+                   o=out.data_ptr(), b=b, hq=hq, hkv=k.shape[1], s=s, d=d,
                    window=int(window), scale=float(scale),
                    softcap=float(softcap), bf16=_DTYPES[q.dtype])
     for field, t in (("q_st", q), ("k_st", k), ("v_st", v), ("o_st", out)):
         getattr(a, field)[:] = t.stride()[:3]
     with torch.cuda.device(q.device):
-        _build.call("repro_flash_attention", [ctypes.POINTER(_FlashArgs), _P],
+        _build.call(entry, [ctypes.POINTER(_FlashArgs), _P],
                     ctypes.byref(a), _build.stream_of(q))
-    LAUNCHES["flash_attention"] += 1
+
+
+def launch_simt(q, k, v, out, *, scale: float, softcap: float = 0.0,
+                window: int = 0) -> None:
+    """B8's SIMT kernel into ``out``: float32 or bfloat16, D from 8 to 256
+    in steps of 8.  All four are (B, H, S, D) views on one card, any
+    (b, h, s) strides with a unit d stride: q and out (B, Hq, S, D), k and
+    v (B, Hkv, S, D)."""
+    _check_common(q, k, v, out)
+    d = q.shape[3]
+    _build.require(8 <= d <= 256 and d % 8 == 0,
+                   f"D = {d}: the SIMT kernel takes 8..256 in steps of 8")
+    _run("repro_flash_attention_simt", q, k, v, out, scale, softcap, window)
+    LAUNCHES["flash_attention_simt"] += 1
+
+
+def launch_wgmma(q, k, v, out, *, scale: float, softcap: float = 0.0,
+                 window: int = 0) -> None:
+    """B8's tensor-core kernel into ``out``: bfloat16, D in ``WGMMA_D``,
+    views as for ``launch_simt`` whose (b, h, s) strides are multiples of 16
+    bytes and whose data start on 16 bytes (what TMA reads)."""
+    _check_common(q, k, v, out)
+    req = _build.require
+    d = q.shape[3]
+    req(q.dtype == torch.bfloat16,
+        f"the tensor-core kernel takes bfloat16, got {q.dtype}")
+    req(d in WGMMA_D, f"D = {d}: the tensor-core kernel takes {WGMMA_D}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        nbytes = t.element_size()
+        req(all(st * nbytes % _TMA_ALIGN == 0 for st in t.stride()[:3]),
+            f"{name} strides {t.stride()}: TMA needs (b, h, s) strides of a "
+            f"multiple of {_TMA_ALIGN} bytes")
+        req(t.data_ptr() % _TMA_ALIGN == 0,
+            f"{name} must start on a {_TMA_ALIGN}-byte boundary for TMA")
+    _run("repro_flash_attention_wgmma", q, k, v, out, scale, softcap, window)
+    LAUNCHES["flash_attention_wgmma"] += 1
+
+
+def launch(q, k, v, out, *, scale: float, softcap: float = 0.0,
+           window: int = 0) -> None:
+    """Run B8 into ``out`` through the kernel ``kernel_route`` names for
+    q's dtype and D."""
+    fn = launch_wgmma if kernel_route(q.dtype, q.shape[3]) == "wgmma" \
+        else launch_simt
+    fn(q, k, v, out, scale=scale, softcap=softcap, window=window)
 
 
 def flash_attention(q, k, v, *, scale: float | None = None,

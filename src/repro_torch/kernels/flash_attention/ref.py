@@ -39,3 +39,51 @@ def flash_attention_ref(q, k, v, *, scale: float | None = None,
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def flash_attention_split_p_ref(q, k, v, *, scale: float | None = None,
+                                softcap: float = 0.0, window: int = 0,
+                                block_k: int = 64, split_p: bool = True):
+    """The arithmetic of B8's tensor-core kernel in plain PyTorch.
+
+    Scores q.k in float32 (the products of bf16 values are exact there),
+    an online softmax over tiles of ``block_k`` keys with a float32 running
+    max and denominator (summed from float32 p), and P.V accumulated in
+    float32 as p_hi.V + p_lo.V, where p_hi = bf16(p) and p_lo = bf16(p -
+    p_hi): the two register-A products of the kernel.  ``split_p=False``
+    is the variant not taken, P rounded once to bf16.  Arguments and
+    result as ``flash_attention_ref``.
+    """
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    k = k.repeat_interleave(group, dim=1).float()
+    v = v.repeat_interleave(group, dim=1).float()
+    qf = q.float()
+    rows = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, Hq, S, 1), _NEG, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), device=q.device)
+    acc = torch.zeros((B, Hq, S, D), device=q.device)
+    for c0 in range(0, S, block_k):
+        kc, vc = k[:, :, c0:c0 + block_k], v[:, :, c0:c0 + block_k]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        cols = torch.arange(c0, c0 + kc.shape[2], device=q.device)[None, :]
+        mask = cols <= rows
+        if window > 0:
+            mask = mask & (cols > rows - window)
+        s = torch.where(mask, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where((s > _NEG / 2) & (m_new > _NEG / 2),
+                        torch.exp(s - m_new), 0.0)
+        corr = torch.where(m > _NEG / 2, torch.exp(m - m_new), 0.0)
+        l = corr * l + p.sum(dim=-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vc
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vc
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)

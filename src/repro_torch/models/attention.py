@@ -3,8 +3,9 @@
 ``gqa_apply`` without a cache).
 
 ``flash_chunked`` takes the model's (B, S, H, D) layout.  On a CUDA tensor
-it launches B8 (``kernels.flash_attention``, a hand-written CUDA kernel)
-through strides, with no transpose copy; on a CPU tensor it runs
+it launches B8 (``kernels.flash_attention``: the tensor-core kernel for
+bf16 at D 64, 128 and 256, the SIMT kernel otherwise) through strides,
+with no transpose copy; on a CPU tensor it runs
 ``flash_chunked_ref``, the plain online softmax over KV chunks of the JAX
 function, which also runs on the card as B8's plain version.
 
@@ -18,7 +19,8 @@ import torch
 from repro_torch.core import threefry
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.common import apply_rope, dense_init, dtype_of
+from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
+                                       matmul_cd)
 
 _NEG = -1e30
 
@@ -130,7 +132,8 @@ def init_gqa(key, cfg, *, device=None):
 def _proj(h, w, cd):
     """einsum('bsd,dhk->bshk') as one matmul in the compute dtype."""
     D = w.shape[0]
-    return (h @ w.to(cd).reshape(D, -1)).reshape(*h.shape[:2], *w.shape[1:])
+    return matmul_cd(h, w.to(cd).reshape(D, -1)).reshape(*h.shape[:2],
+                                                          *w.shape[1:])
 
 
 def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
@@ -158,5 +161,5 @@ def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
     out = attention(q, k, v, chunk_k=min(cfg.attn_chunk_k, S),
                     scale=Dh ** -0.5, cap=cfg.attn_softcap, window=window)
     wo = p["wo"].to(cd)
-    out = out.to(cd).reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = matmul_cd(out.to(cd).reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
     return out, None

@@ -12,8 +12,8 @@ import torch
 
 from repro_torch.core import threefry
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (dense_init, dtype_of, gelu, rms_norm,
-                                       swiglu)
+from repro_torch.models.common import (dense_init, dtype_of, gelu, matmul_cd,
+                                       rms_norm, swiglu)
 
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
 
@@ -31,10 +31,10 @@ def init_mlp(key, cfg, d_ff=None, *, device=None):
 def mlp_apply(p, x, cfg):
     cd = dtype_of(cfg.compute_dtype)
     x = x.to(cd)
-    g = x @ p["w_gate"].to(cd)
-    u = x @ p["w_up"].to(cd)
+    g = matmul_cd(x, p["w_gate"].to(cd))
+    u = matmul_cd(x, p["w_up"].to(cd))
     h = gelu(g) * u if cfg.mlp_act == "geglu" else swiglu(g, u)
-    return h @ p["w_down"].to(cd)
+    return matmul_cd(h, p["w_down"].to(cd))
 
 
 def _norm(p, x, cfg):

@@ -8,6 +8,9 @@ product.  The initialisers draw ``jax.random.normal`` through
 ``core.threefry``, so a key gives the JAX package's weights within
 ``normal``'s 4 ulps.
 
+``matmul_cd`` is the LM forward's product in the compute dtype, rounded
+once from a float32 sum as XLA's dot is.
+
 ``ShardCtx`` and ``cross_entropy_chunked`` are not ported: the port runs
 one device (no sharding constraints) and only the forward pass.
 """
@@ -24,6 +27,23 @@ def dtype_of(name: str) -> torch.dtype:
     """The torch dtype of a config's ``param_dtype``/``compute_dtype``
     (a numpy-style name such as "float32" or "bfloat16")."""
     return getattr(torch, name)
+
+
+def matmul_cd(a, b):
+    """``a @ b`` in the operands' (compute) dtype, as XLA computes a dot:
+    the products summed in float32 and the sum rounded once.
+
+    A bfloat16 product on the CPU is taken in float32 and cast back, since
+    torch's CPU bfloat16 GEMM (oneDNN on AMX/AVX512-BF16 cores) does not
+    round once in every entry, and whether it does depends on the machine.
+    On the card a bfloat16 ``torch.matmul`` is cuBLAS with a float32
+    accumulator, rounded once when
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    is False.  A float32 product is a plain matmul on both devices.
+    """
+    if a.dtype == torch.bfloat16 and a.device.type == "cpu":
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
 
 
 # --------------------------------------------------------------------------

@@ -9,8 +9,10 @@ the sweep of ``tests/test_kernels.py`` (shapes x {none, softcap, window,
 both}) at rtol = atol = 2e-5 in float32 (a different summation order of
 the same float32 arithmetic), to ``flash_attention_pallas`` in interpret
 mode on a few cases, and in bfloat16 at 5e-2 (outputs rounded to bf16 in
-both, as in ``tests/test_kernels.py``).  The CUDA kernel itself is held
-to the plain version on the card by ``chip_smoke.py`` (phase h).
+both, as in ``tests/test_kernels.py``).  The CUDA kernels themselves are
+held to the plain version on the card by ``chip_smoke.py`` (phase h);
+here the wrappers' choice between them (by dtype and D) and their input
+checks run with the launch stubbed.
 """
 import numpy as np
 import pytest
@@ -130,6 +132,21 @@ def test_flash_chunked_ref_offset_and_latent_values_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+B8_KEYS = ("flash_attention_wgmma", "flash_attention_simt")
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """Stub B8's C call on meta tensors: record the entry each launch
+    would call, with the device check answering 'cuda'."""
+    from repro_torch.kernels.flash_attention import ops
+    entries = []
+    monkeypatch.setattr(_build, "kernel_device", lambda *t: "cuda")
+    monkeypatch.setattr(ops, "_run", lambda entry, *a: entries.append(entry))
+    kernels.reset_launches()
+    return entries
+
+
 def test_dispatch_on_device(monkeypatch):
     """CPU tensors run the plain versions and launch nothing; other
     devices raise; on the card, what B8 does not take raises before any
@@ -139,7 +156,7 @@ def test_dispatch_on_device(monkeypatch):
     flash_attention(q, k, v)
     t_attn.flash_chunked(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), scale=8 ** -0.5)
-    assert kernels.LAUNCHES["flash_attention"] == 0
+    assert all(kernels.LAUNCHES[key] == 0 for key in B8_KEYS)
     with pytest.raises(ValueError, match="device"):
         flash_attention(*[t.to("meta") for t in (q, k, v)])
     monkeypatch.setattr(_build, "kernel_device", lambda *t: "cuda")
@@ -149,24 +166,76 @@ def test_dispatch_on_device(monkeypatch):
     with pytest.raises(NotImplementedError, match="q_offset"):
         t_attn.flash_chunked(qs, ks, v.transpose(1, 2), scale=1.0,
                              q_offset=4)
-    assert kernels.LAUNCHES["flash_attention"] == 0
+    assert all(kernels.LAUNCHES[key] == 0 for key in B8_KEYS)
 
 
-@pytest.mark.parametrize("bad", ["d", "heads", "dtype", "stride"])
-def test_kernel_input_checks(bad):
-    """B8's wrapper refuses what the kernel does not take (checked before
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 192, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 256, "simt")])
+def test_dispatch_by_dtype_and_d(launched, dtype, d, route):
+    """A CUDA tensor takes the kernel its dtype and D name, and counts the
+    launch under that kernel's key only: bf16 at D 64, 128 and 256 the
+    tensor-core kernel, the rest the SIMT kernel; so does the model path
+    (flash_chunked on the (B, S, H, D) layout, through strides)."""
+    from repro_torch.kernels.flash_attention import ops
+    assert ops.kernel_route(dtype, d) == route
+    q = torch.empty((2, 4, 24, d), dtype=dtype, device="meta")
+    kv = torch.empty((2, 2, 24, d), dtype=dtype, device="meta")
+    out = flash_attention(q, kv, kv)
+    assert out.shape == q.shape and out.dtype == dtype
+    t_attn.flash_chunked(q.transpose(1, 2), kv.transpose(1, 2),
+                         kv.transpose(1, 2), scale=d ** -0.5)
+    assert launched == [f"repro_flash_attention_{route}"] * 2
+    assert kernels.LAUNCHES[f"flash_attention_{route}"] == 2
+    assert sum(kernels.LAUNCHES[key] for key in B8_KEYS) == 2
+
+
+def test_tma_stride_raises_without_fallback(launched):
+    """An s stride of 68 bf16 (136 bytes) is no multiple of 16 bytes: the
+    tensor-core kernel refuses it, and ``launch`` raises rather than run
+    the SIMT kernel; the SIMT kernel itself takes it."""
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.empty((1, 4, 16, 68), dtype=torch.bfloat16,
+                    device="meta")[..., :64]
+    kv = torch.empty((1, 2, 16, 64), dtype=torch.bfloat16, device="meta")
+    out = torch.empty((1, 4, 16, 64), dtype=torch.bfloat16, device="meta")
+    for fn in (ops.launch, ops.launch_wgmma):
+        with pytest.raises(ValueError, match="TMA"):
+            fn(q, kv, kv, out, scale=1.0)
+    assert launched == []
+    ops.launch_simt(q, kv, kv, out, scale=1.0)
+    assert launched == ["repro_flash_attention_simt"]
+
+
+@pytest.mark.parametrize("bad", ["d", "heads", "dtype", "stride",
+                                 "wgmma_d", "wgmma_dtype", "tma_stride"])
+def test_kernel_input_checks(launched, bad):
+    """B8's wrappers refuse what their kernels do not take (checked before
     any build or launch, so it runs here on meta tensors)."""
     from repro_torch.kernels.flash_attention import ops
     shape_q, shape_kv, dt = (1, 4, 16, 64), (1, 2, 16, 64), torch.float32
+    fn = ops.launch
     if bad == "d":
         shape_q, shape_kv = (1, 4, 16, 12), (1, 2, 16, 12)
     if bad == "heads":
         shape_kv = (1, 3, 16, 64)
     if bad == "dtype":
         dt = torch.float16
+    if bad == "wgmma_d":
+        shape_q, shape_kv, dt = (1, 4, 16, 96), (1, 2, 16, 96), torch.bfloat16
+        fn = ops.launch_wgmma
+    if bad == "wgmma_dtype":
+        fn = ops.launch_wgmma
     q = torch.empty(shape_q, dtype=dt, device="meta")
     k = torch.empty(shape_kv, dtype=dt, device="meta")
     if bad == "stride":
         q = torch.empty((1, 4, 64, 16), dtype=dt, device="meta").transpose(2, 3)
+    if bad == "tma_stride":
+        k = torch.empty((1, 2, 16, 68), dtype=torch.bfloat16,
+                        device="meta")[..., :64]
+        q = torch.empty(shape_q, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
-        ops.launch(q, k, k, torch.empty_like(q), scale=1.0)
+        fn(q, k, k, torch.empty_like(q), scale=1.0)
+    assert launched == []

@@ -45,11 +45,18 @@ H_RTOL = 1e-5
 # states and the share of entries that differ at all.  Where both round at
 # the same points, entries part only where two float32 sums taken in another
 # order fall on either side of a bf16 rounding boundary, which is rare
-# (measured 1.5e-4 and 0.16%); a rounding point dropped or moved changes a
+# (measured 1.47e-4 and 0.16%); a rounding point dropped or moved changes a
 # half-ulp (2^-9 = 2e-3) in most entries (measured: silu not rounded before
 # the product 5.4e-3 and 61%, RoPE left in float32 6.4e-3 and 64%, rms_norm
 # not cast back 1.7e-3 and 99.97%).  XLA's excess precision is turned off
-# for the reference, as by default it may drop a cast pair inside a fusion
+# for the reference, as by default it may drop a cast pair inside a fusion.
+# The numbers hold only because the port's bf16 products round once, as
+# XLA's dot does (``common.matmul_cd``): on a CPU with AMX-BF16 and
+# AVX512-BF16, torch's bare bf16 GEMM misses that rounding in a few entries
+# (0.043% at (72, 256) @ (256, 64)), each such one-ulp miss spreads across
+# its row through the next projection, and the test measured 1.34e-3 and
+# 5.8%; on a CPU without those units it measured about the numbers
+# above (1.5e-4 and 0.16%)
 BF16_REL = 5e-4
 BF16_DIFF_SHARE = 0.02
 
@@ -126,6 +133,21 @@ def test_hidden_states_match_jax_bf16(musicgen):
         rel = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert rel <= BF16_REL, rel
         assert (got != want).mean() <= BF16_DIFF_SHARE, (got != want).mean()
+
+
+def test_matmul_cd_rounds_once():
+    """bf16 ``matmul_cd`` on the CPU equals the float32 product rounded once
+    to bf16, bit for bit, at the shape of a smoke layer's projection; the
+    float32 product is the plain one."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.normal(size=(72, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(256, 64)).astype(np.float32))
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    got = t_common.matmul_cd(a16, b16)
+    assert got.dtype == torch.bfloat16
+    want = (a16.float() @ b16.float()).bfloat16()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(t_common.matmul_cd(a, b), a @ b)
 
 
 def test_primitives_match_jax():
