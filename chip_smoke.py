@@ -32,8 +32,14 @@ checks them:
       RECALL_MIN and above the recall of the state it started from; steps/s
       beside the default path's from the same state); B6 also at
       init_state's C = 32 and at C = 14 of c_hd_rev = 4; the times of B5-B7
-      and of B4 at FUnc-SNE's HD and LD-rescore shapes; and the cost of the
-      threefry draws of one cand_fused=False step;
+      and of B4 at FUnc-SNE's HD and LD-rescore shapes; the segment sum of
+      the unfused paths bit-identical over two calls, each of its passes
+      (count, scan, place, order and sum) timed from a profiler trace and
+      the whole call from CUDA graphs beside ``index_add_``, its run
+      lengths (longest, 99th percentile), and the same held on ids with a
+      row past the kernel's shared-memory capacity at d = 2 and 8; and the
+      cost of the threefry draws of one
+      cand_fused=False step;
   (g) nearest-neighbour descent (``repro_torch.core.nnd``, ``NNDConfig()``)
       on the same X: B4 at C = 16 against its plain version, one iteration
       through the kernels against one through the plain versions, then
@@ -46,15 +52,17 @@ checks them:
       MusicGen-large's prefill shape (B 4, S 1500, 32 heads of 64, bf16),
       Qwen2-7B's (B 1, S 4096, 28 query and 4 KV heads of 128, bf16),
       Gemma2-2b's (B 1, S 8192, 8 query and 4 KV heads of 256, softcap 50)
-      with window 4096 and 0, and a float32 case.  bf16 at D 64, 128 and
-      256 takes the tensor-core kernel (wgmma, TMA), float32 the SIMT
-      kernel (each case checks which one launched); each kernel against
-      the plain version (TOL_ATTN_F32, one bf16 ulp), and the bf16 cases
-      time both kernels in turns (plain, tensor-core, SIMT, tensor-core)
-      beside the bound and, without softcap or window,
-      ``F.scaled_dot_product_attention`` as the yardstick.  Checked too: a
-      ragged S (1,499) and the model's (B, S, H, D) layout through strides,
-      at each D of the tensor-core kernel;
+      with window 4096 and 0, and MusicGen's shape in float32.  bf16 at D
+      64, 128 and 256 takes the tensor-core kernel (wgmma, TMA), float32 at
+      D 64 and 128 its float32 counterpart (3xTF32 on wgmma), every other
+      dtype and D the SIMT kernel (each case checks which one launched);
+      each kernel against the plain version (TOL_ATTN_F32, one bf16 ulp),
+      and each case times its tensor-core kernel and the SIMT kernel in
+      turns (plain, tensor-core, SIMT, tensor-core) beside the bound and,
+      without softcap or window, ``F.scaled_dot_product_attention`` as the
+      yardstick.  Checked too, through the routed calls: a ragged S (1,499)
+      and the model's (B, S, H, D) layout through strides, at each D of
+      both tensor-core kernels, and float32 at D 96 (the SIMT kernel);
   (i) the latents pipeline of ``repro_torch.examples.embed_latents`` with
       MusicGen-large at full width and depth (48 layers, d_model 2048,
       float32 params from ``init_params(0)`` by threefry on the card, bf16
@@ -63,15 +71,20 @@ checks them:
       shape, then with the launch counters set to 0 the forward over N_SEQ
       sequences of 24 frames (B8's tensor-core kernel 48 times a batch,
       its SIMT kernel never, nothing else; tokens/s), one batch of it in
-      float32 compute with the counters at 0 (the SIMT kernel 48 times,
-      nothing else), PCA 16; the
+      float32 compute with the counters at 0 (the float32 tensor-core
+      kernel 48 times, nothing else), one batch of the config's smoke
+      variant (float32, heads of 32: the SIMT kernel once a layer, nothing
+      else; then again with each call held against the plain version,
+      the hidden states against the plain ``flash_chunked``'s, and the
+      SIMT kernel timed at that shape), PCA 16; the
       fit's B1, B2 and B3 at its shapes (dim_hd 16, dim_ld 8) from
       init_state and one step against their plain versions, and one step
       kernels vs plain; then with the counters at 0 ``fit`` with dim_ld 8
       over 500 steps (steps/s) and one-shot 1-NN on the latents, pca16 and
       funcsne8 (funcsne8 >= ACC_MIN);
   (j) the repairs: C1, embedding widths C1_WIDTHS on the same X (B1-B3, B5
-      and B7 against their plain versions, one step kernels vs plain, a
+      and B7 against their plain versions, the segment sum bit for bit
+      against the CPU's ``index_add_``, one step kernels vs plain, a
       50-step chunk on the kernels equal to its steps one by one, and
       where those steps part from the plain versions' (reported)), and B2
       and B4 at K = 128, C = 64 from one step of such a config; each row's
@@ -121,7 +134,13 @@ RECALL_MIN = 0.4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 494.7e12    # H100 SXM, TF32 tensor cores, dense
 # tolerances of the float comparisons, kernel vs plain version on the card
+# the segment sum's passes, by the kernels that run them
+SEG_PASSES = {"count": ("count_kernel",),
+              "scan": ("column_scan_kernel", "group_scan_kernel"),
+              "place": ("place_kernel",),
+              "order_and_sum": ("group_sum_kernel",)}
 TOL_SQDIST_REL = 1e-5          # sum over 784 columns in another order
 TOL_FORCE_REL = 1e-5           # of each field's largest entry
 TOL_STEP_REL = 1e-4            # Y / vel / zhat after one step
@@ -134,7 +153,8 @@ TOL_ATTN_F32 = 1e-5
 # (name, B, Hq, Hkv, S, D, dtype, softcap, window, timing reps) of phase (h):
 # MusicGen-large's prefill of 30 s of 50 Hz frames, Qwen2-7B's at 4k,
 # Gemma2-2b's local and global layers at 8k (bf16: the tensor-core kernel,
-# timed beside the SIMT kernel), and a float32 case (the SIMT kernel)
+# timed beside the SIMT kernel), and MusicGen's in float32 (the float32
+# tensor-core kernel, timed beside the SIMT kernel)
 ATTN_CASES = (
     ("flash_attention_musicgen", 4, 32, 32, 1500, 64, torch.bfloat16, 0.0, 0,
      20),
@@ -146,19 +166,31 @@ ATTN_CASES = (
      5),
     ("flash_attention_fp32", 4, 32, 32, 1500, 64, torch.float32, 0.0, 0, 20),
 )
-# (name, B, Hq, Hkv, S, D, softcap, window, layout) of phase (h), checked
-# only: S that fills no tile, and the model's (B, S, H, D) layout through
-# strides, at each D of the tensor-core kernel, in bf16.  At D = 256 a CTA
-# holds 128 query rows, and S = 1,050 leaves the last CTA's second
-# warpgroup no row
+# (name, B, Hq, Hkv, S, D, dtype, softcap, window, layout) of phase (h),
+# checked only, through the routed call: S that fills no tile, and the
+# model's (B, S, H, D) layout through strides, at each D of the two
+# tensor-core kernels; and one float32 case at D 96, which routes to the
+# SIMT kernel.  At D = 256 (bf16) and D = 64 (float32) a CTA holds 128
+# query rows, and S = 1,050 leaves the last CTA's second warpgroup no row
 ATTN_CHECKS = (
-    ("ragged_d64", 2, 8, 4, 1499, 64, 0.0, 0, "bhsd"),
-    ("ragged_d128_window", 1, 8, 2, 1499, 128, 0.0, 700, "bhsd"),
-    ("strided_d128", 2, 16, 4, 1500, 128, 0.0, 0, "bshd"),
-    ("strided_d256_softcap_window", 1, 8, 4, 1050, 256, 50.0, 300, "bshd"),
+    ("ragged_d64", 2, 8, 4, 1499, 64, torch.bfloat16, 0.0, 0, "bhsd"),
+    ("ragged_d128_window", 1, 8, 2, 1499, 128, torch.bfloat16, 0.0, 700,
+     "bhsd"),
+    ("strided_d128", 2, 16, 4, 1500, 128, torch.bfloat16, 0.0, 0, "bshd"),
+    ("strided_d256_softcap_window", 1, 8, 4, 1050, 256, torch.bfloat16, 50.0,
+     300, "bshd"),
+    ("f32_ragged_d64", 2, 8, 4, 1499, 64, torch.float32, 0.0, 0, "bhsd"),
+    ("f32_strided_d64_softcap_window", 2, 8, 4, 1050, 64, torch.float32,
+     50.0, 300, "bshd"),
+    ("f32_strided_d128_window", 2, 16, 4, 1500, 128, torch.float32, 0.0, 700,
+     "bshd"),
+    ("f32_simt_d96", 1, 8, 2, 1499, 96, torch.float32, 0.0, 0, "bhsd"),
 )
 B8_SOURCE = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+             "tf32": "src/repro_torch/csrc/flash_attention_tf32.cu",
              "simt": "src/repro_torch/csrc/flash_attention.cu"}
+B8_LABEL = {"wgmma": "tensor-core", "tf32": "float32 tensor-core (3xTF32)",
+            "simt": "SIMT"}
 B8_REPLACES = "src/repro/kernels/flash_attention/kernel.py:86"
 # phase (i): sequences of 24 frames through MusicGen-large (98,304 tokens)
 N_SEQ = 4096
@@ -320,17 +352,20 @@ def main():
         pairwise_sqdist, pairwise_sqdist_gather)
     from repro_torch.kernels.pairwise_sqdist.ref import (
         pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
-    from repro_torch.kernels.segment_sum.ops import segment_runs, segment_sum
+    from repro_torch.kernels.segment_sum import ops as seg_ops
+    from repro_torch.kernels.segment_sum.ops import segment_sum
     from repro_torch.kernels.segment_sum.ref import segment_sum_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.knn_merge.ops import MAX_C, MAX_K
-    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.base import get_arch, smoke_variant
     from repro_torch.examples import embed_latents
     from repro_torch.models.attention import flash_chunked, flash_chunked_ref
     from repro_torch.models.transformer import LMModel
     import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # bf16 matmuls accumulate in fp32 throughout, as XLA's do
@@ -622,8 +657,6 @@ def main():
     log(f"    phases add up to {per_step:.3f} ms per step; the main path "
         f"took {t_run / ITERS * 1e3:.3f} ms per step")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     win = funcsne.make_chunked_step(cfg, 20, schedule=funcsne.default_schedule,
                                     n_iter=ITERS)
     torch.cuda.synchronize()
@@ -677,15 +710,23 @@ def main():
         """Kernel vs plain version on one recorded call; returns the max
         abs error.  The scoring kernels exact on quantised inputs, their
         distances within TOL_SQDIST_REL on real ones (ids and flags may
-        part at a near tie there); forces within TOL_FORCE_REL."""
+        part at a near tie there); forces within TOL_FORCE_REL; the segment
+        sum bit for bit against the CPU's sequential index_add_."""
         got = flat(getattr(funcsne.KERNELS, op)(*args, **kw))
-        want = flat(getattr(funcsne.PLAIN, op)(*args, **kw))
+        if op == "segment_sum":
+            want = [segment_sum_ref(args[0].cpu(), args[1].cpu(), args[2])
+                    .to(dev)]
+        else:
+            want = flat(getattr(funcsne.PLAIN, op)(*args, **kw))
         err = 0.0
         for g, w in zip(got, want):
             check((g is None) == (w is None), f"{key}: None outputs differ")
             if w is None:
                 continue
-            if op in exact_ops and quantised:
+            if op == "segment_sum":
+                check(torch.equal(g, w), f"{key}: not the CPU's sequential "
+                      "index_add_ bit for bit")
+            elif op in exact_ops and quantised:
                 check(torch.equal(g, w), f"{key} not exact on quantised input")
             elif op in ("knn_merge", "knn_merge_cand") \
                     and w.dtype == torch.float32:
@@ -858,16 +899,70 @@ def main():
           f_launch["scatter_fused=False"]["segment_sum"],
           library=lambda: torch.zeros_like(out_s).index_add_(0, ix, vx),
           tag="[f]")
-    check(torch.equal(segment_sum(ix, vx, nx).cpu(),
-                      segment_sum_ref(ix.cpu(), vx.cpu(), nx)),
+    first = segment_sum(ix, vx, nx)
+    check(torch.equal(first.cpu(), segment_sum_ref(ix.cpu(), vx.cpu(), nx)),
           "segment_sum differs from the sequential index_add_ on the CPU")
-    # how its time splits: the wrapper's stable sort and segment offsets
-    # alone, the rest is the kernel's fixed-order walk
-    sort_ms = time_ms(lambda: segment_runs(ix, nx), 50)
-    log(f"    segment_sum: {ix.shape[0]} rows of {vx.shape[1]} into {nx}; "
-        f"bit-identical to the CPU's sequential index_add_; its sort and "
-        f"offsets alone take {sort_ms:.4f} ms of its {out[-1]['ms']:.4f} ms")
-    del out_s
+    check(torch.equal(first, segment_sum(ix, vx, nx)),
+          "segment_sum not bit-identical over two calls")
+    # where its time goes: the four passes' device time from a profiler
+    # trace of full calls (by kernel name), the whole call beside
+    # index_add_ from CUDA graphs (device time without the host's
+    # launches); the run lengths the order-and-sum pass meets
+    work_s = torch.empty(seg_ops.work_ints(nx, ix.shape[0], vx.shape[1]),
+                         dtype=torch.int32, device=dev)
+    seg_ops.launch(ix, vx, nx, out_s, work_s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            seg_ops.launch(ix, vx, nx, out_s, work_s)
+        torch.cuda.synchronize()
+    pass_ms = dict.fromkeys(SEG_PASSES, 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            for name, kerns in SEG_PASSES.items():
+                if any(k_ in ev.key for k_ in kerns):
+                    pass_ms[name] += ev.self_device_time_total / 1e3 / 20
+    del prof
+    full_g = graph_ms(lambda: seg_ops.launch(ix, vx, nx, out_s, work_s), 20)
+    lib_g = graph_ms(lambda: torch.zeros_like(out_s).index_add_(0, ix, vx), 20)
+    runs = torch.bincount(ix.long(), minlength=nx).float()
+    log(f"    segment_sum: {ix.shape[0]} {str(ix.dtype)[6:]} ids, rows of "
+        f"{vx.shape[1]} into {nx}; bit-identical to the CPU's sequential "
+        f"index_add_ and over two calls; passes from a profiler trace of 20 "
+        f"calls: " + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items())
+        + f" ms; the whole call from CUDA graphs {full_g:.4f} ms against "
+        f"index_add_'s {lib_g:.4f} ({full_g / lib_g:.2f}x); run lengths: "
+        f"longest {int(runs.max())}, 99th percentile "
+        f"{float(torch.quantile(runs, 0.99)):.0f}, mean "
+        f"{float(runs.mean()):.1f}, empty rows {int((runs == 0).sum())}")
+    check(all(v > 0 for v in pass_ms.values()),
+          f"segment_sum: a pass the profiler did not see: {pass_ms}")
+    del out_s, work_s, first, runs
+    # the routes the step's ids do not take: a row past a group's
+    # shared-memory capacity (every 64th id sent to row 0, as clamped -1
+    # slots are), at d = 2 (values staged) and at d = 8 (values gathered);
+    # each against the CPU's sequential index_add_ and over two calls
+    pile = ix.clone()
+    pile[::64] = 0
+    for d_p in (2, 8):
+        v_p = vx if d_p == 2 else torch.randn(
+            (ix.shape[0], d_p), generator=torch.Generator(device=dev)
+            .manual_seed(d_p), device=dev)
+        got = segment_sum(pile, v_p, nx)
+        check(torch.equal(got.cpu(), segment_sum_ref(pile.cpu(), v_p.cpu(),
+                                                     nx)),
+              f"segment_sum, pile on row 0, d={d_p}: not the CPU's "
+              "sequential index_add_")
+        check(torch.equal(got, segment_sum(pile, v_p, nx)),
+              f"segment_sum, pile on row 0, d={d_p}: two calls differ")
+        log(f"    segment_sum, every 64th id on row 0 ({int((pile == 0).sum())}"
+            f" ids there), d = {d_p}: bit-identical to the CPU's sequential "
+            f"index_add_ and over two calls; "
+            f"{time_ms(lambda: segment_sum(pile, v_p, nx), 20):.4f} ms, "
+            f"index_add_ {time_ms(lambda: torch.zeros((nx, d_p), device=dev).index_add_(0, pile, v_p), 20):.4f} ms")
+        del got, v_p
+    del pile
 
     def b4_entry(name, call, err, count, tag):
         """B4's time beside its bound: every input read once, every output
@@ -998,24 +1093,25 @@ def main():
         """Time B8's kernels in turns (plain, tensor-core, SIMT,
         tensor-core) on one card, then the library call, the kernels and
         the library call with ``timer``; one row per kernel in ``fns``
-        (route -> call; "plain" the plain version), launches filled in by
-        phase (i)."""
+        (route -> call: "wgmma" or "tf32" the tensor-core kernel of the
+        dtype, "simt"; "plain" the plain version), launches filled in by
+        phase (i).  The bound is the same work's least time: bf16 products
+        at the bf16 rate, or float32-accurate ones as three TF32 products
+        each (3xTF32) at the TF32 rate."""
         plain_ms = time_ms(fns["plain"], max(2, reps // 10))
-        t = {}
-        if "wgmma" in fns:
-            t["wgmma"] = [timer(fns["wgmma"], reps)]
-        t["simt"] = [timer(fns["simt"], max(2, reps // 5))]
-        if "wgmma" in fns:
-            t["wgmma"].append(timer(fns["wgmma"], reps))
+        tc = "wgmma" if "wgmma" in fns else "tf32"
+        t = {tc: [timer(fns[tc], reps)],
+             "simt": [timer(fns["simt"], max(2, reps // 5))]}
+        t[tc].append(timer(fns[tc], reps))
         lib_ms = None if library is None else timer(library, reps)
-        peak = BF16_FLOPS_PER_S if fns["dtype"] == torch.bfloat16 \
-            else FP32_FLOPS_PER_S
-        b_ms, b_by = bound(bytes_, flops, peak)
+        if fns["dtype"] == torch.bfloat16:
+            b_ms, b_by = bound(bytes_, flops, BF16_FLOPS_PER_S)
+        else:
+            b_ms, b_by = bound(bytes_, 3.0 * flops, TF32_FLOPS_PER_S)
         parts = []
         for route, ms in t.items():
             mean = sum(ms) / len(ms)
-            row = name if route == "wgmma" or "wgmma" not in fns \
-                else f"{name}_simt"
+            row = name if route == tc else f"{name}_simt"
             b8[row] = {"name": row, "route": "cuda",
                        "source": B8_SOURCE[route], "replaces": B8_REPLACES,
                        "launches": 0, "max_abs_err": errs[route], "ms": mean,
@@ -1023,15 +1119,16 @@ def main():
                        "bound_by": b_by, "library_ms": lib_ms}
             b8_route[row] = route
             out.append(b8[row])
-            parts.append(f"{'tensor-core' if route == 'wgmma' else 'SIMT'} "
+            parts.append(f"{B8_LABEL[route]} "
                          + " / ".join(f"{m:.4f}" for m in ms) + " ms ("
                          f"{flops / mean / 1e9:.1f} TFLOP/s, {b_ms / mean:.1%}"
                          " of the bound)")
         log(f"{tag} {name}: " + "; ".join(parts) + f"; bound {b_ms:.4f} ms "
             f"by {b_by}; plain {plain_ms:.3f} ms"
             + ("" if lib_ms is None else f"; SDPA {lib_ms:.4f} ms")
-            + ("" if "wgmma" not in t else
-               f"; SIMT / tensor-core {t['simt'][0] / min(t['wgmma']):.1f}x"))
+            + f"; SIMT / tensor-core {t['simt'][0] / min(t[tc]):.1f}x"
+            + ("" if lib_ms is None else
+               f"; tensor-core / SDPA {min(t[tc]) / lib_ms:.2f}x"))
 
     b8, b8_route = {}, {}          # B8's rows by name, and their kernel
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1039,7 +1136,7 @@ def main():
         q, k, v = (torch.randn((b, h, s_len, d_h), generator=gen, device=dev)
                    .to(dt) for h in (hq, hkv, hkv))
         route = flash_ops.kernel_route(dt, d_h)
-        check(route == ("wgmma" if dt == torch.bfloat16 else "simt"),
+        check(route == ("wgmma" if dt == torch.bfloat16 else "tf32"),
               f"{name}: B8 route {route}")
         kernels.reset_launches()
         got = flash_attention(q, k, v, softcap=cap, window=win)
@@ -1055,11 +1152,10 @@ def main():
         buf = torch.empty_like(q)
         fns["simt"] = lambda q=q, k=k, v=v, buf=buf, kw=kw: \
             flash_ops.launch_simt(q, k, v, buf, **kw)
-        if route == "wgmma":
-            fns["wgmma"] = lambda q=q, k=k, v=v, buf=buf, kw=kw: \
-                flash_ops.launch_wgmma(q, k, v, buf, **kw)
-            fns["simt"]()
-            errs["simt"] = attn_close(buf, want, f"{name} SIMT")
+        fns[route] = lambda q=q, k=k, v=v, buf=buf, kw=kw, r=route: \
+            getattr(flash_ops, f"launch_{r}")(q, k, v, buf, **kw)
+        fns["simt"]()
+        errs["simt"] = attn_close(buf, want, f"{name} SIMT")
         lib = None
         if not cap and not win:
             lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
@@ -1069,17 +1165,16 @@ def main():
                 library=lib)
         log(f"    {name}: B {b}, S {s_len}, Hq {hq}, Hkv {hkv}, D {d_h}, "
             f"{str(dt)[6:]}, softcap {cap}, window {win}: the "
-            f"{'tensor-core' if route == 'wgmma' else 'SIMT'} kernel "
-            f"through flash_attention, max abs err {errs[route]:.3e} "
-            "against the plain version"
-            + ("" if "simt" not in errs or route == "simt" else
-               f" (the SIMT kernel {errs['simt']:.3e})"))
+            f"{B8_LABEL[route]} kernel through flash_attention, max abs err "
+            f"{errs[route]:.3e} against the plain version (the SIMT kernel "
+            f"{errs['simt']:.3e})")
         del q, k, v, got, want, buf, fns
-    for name, b, hq, hkv, s_len, d_h, cap, win, layout in ATTN_CHECKS:
+    for name, b, hq, hkv, s_len, d_h, dt, cap, win, layout in ATTN_CHECKS:
         shape = (lambda h: (b, s_len, h, d_h)) if layout == "bshd" else \
             (lambda h: (b, h, s_len, d_h))
-        q, k, v = (torch.randn(shape(h), generator=gen, device=dev).bfloat16()
+        q, k, v = (torch.randn(shape(h), generator=gen, device=dev).to(dt)
                    for h in (hq, hkv, hkv))
+        route = flash_ops.kernel_route(dt, d_h)
         kernels.reset_launches()
         if layout == "bshd":
             got = flash_chunked(q, k, v, scale=d_h ** -0.5, cap=cap,
@@ -1087,15 +1182,16 @@ def main():
             q, k, v = (t_.transpose(1, 2) for t_ in (q, k, v))
         else:
             got = flash_attention(q, k, v, softcap=cap, window=win)
-        check(kernels.LAUNCHES["flash_attention_wgmma"] == 1
+        check(kernels.LAUNCHES[f"flash_attention_{route}"] == 1
               and sum(kernels.LAUNCHES.values()) == 1,
               f"{name}: launches {kernels.LAUNCHES}")
         err = attn_close(got, flash_attention_ref(q, k, v, softcap=cap,
                                                   window=win), name)
         log(f"[h] {name}: B {b}, S {s_len}, Hq {hq}, Hkv {hkv}, D {d_h}, "
-            f"softcap {cap}, window {win}, {layout} layout (q strides "
-            f"{tuple(q.stride())}): the tensor-core kernel, max abs err "
-            f"{err:.3e} against the plain version")
+            f"{str(dt)[6:]}, softcap {cap}, window {win}, {layout} layout "
+            f"(q strides {tuple(q.stride())}): the {B8_LABEL[route]} kernel "
+            f"through the routed call, max abs err {err:.3e} against the "
+            "plain version")
         del q, k, v, got
     torch.cuda.empty_cache()
 
@@ -1183,27 +1279,98 @@ def main():
           f"forward launches {launches_i}, expected {want_i}")
     check(H.shape == (N_SEQ, cfg_m.d_model) and bool(torch.isfinite(H).all()),
           "latents not finite")
-    # the same forward in float32 compute, one batch: B8's SIMT kernel on
-    # a path of its own (float32 takes it at any D)
+    # the same forward in float32 compute, one batch: B8's float32
+    # tensor-core kernel on a path of its own (float32 at D 64)
     x0 = torch.from_numpy(frames[:embed_latents.BATCH]).to(dev)
     kernels.reset_launches()
     h32 = LMModel(dataclasses.replace(cfg_m, compute_dtype="float32")) \
         .hidden_states(params, x0)
     torch.cuda.synchronize()
     launches_f32 = dict(kernels.LAUNCHES)
-    want_f32 = {"flash_attention_simt": cfg_m.n_layers}
+    want_f32 = {"flash_attention_tf32": cfg_m.n_layers}
     check(launches_f32 == {k_: want_f32.get(k_, 0) for k_ in launches_f32},
           f"float32 forward launches {launches_f32}, expected {want_f32}")
     check(h32.dtype == torch.float32 and bool(torch.isfinite(h32).all()),
           "float32 hidden states not finite")
-    log(f"[i] one batch in float32 compute: B8's SIMT kernel launched "
-        f"{launches_f32['flash_attention_simt']} times, nothing else; "
-        f"hidden states finite")
+    log(f"[i] one batch in float32 compute: B8's float32 tensor-core kernel "
+        f"launched {launches_f32['flash_attention_tf32']} times, its SIMT "
+        f"kernel 0, nothing else; hidden states finite")
     del h32, x0
+    # the SIMT kernel's own path: the config's smoke variant (float32
+    # compute, heads of 32, the width the CPU tests run), one batch
+    cfg_s = smoke_variant(cfg_m)
+    model_s = LMModel(cfg_s)
+    params_s = model_s.init_params(0, device=dev)
+    x_s = torch.from_numpy(embed_latents.make_frames(
+        embed_latents.BATCH, cfg_s.d_model)[0]).to(dev)
+    kernels.reset_launches()
+    h_s = model_s.hidden_states(params_s, x_s)
+    torch.cuda.synchronize()
+    launches_s = dict(kernels.LAUNCHES)
+    want_s = {"flash_attention_simt": cfg_s.n_layers}
+    check(launches_s == {k_: want_s.get(k_, 0) for k_ in launches_s},
+          f"smoke-variant forward launches {launches_s}, expected {want_s}")
+    check(bool(torch.isfinite(h_s).all()), "smoke-variant hidden states")
+    # the same batch with B8's calls recorded, and through the plain
+    # flash_chunked: the SIMT kernel held on this path, and timed at its
+    # shape (from CUDA graphs: a launch takes the host longer than the
+    # kernel takes the card)
+    calls_s = []
+
+    def rec_s(q, k, v, **kw):
+        calls_s.append((q, k, v, kw))
+        return flash_chunked(q, k, v, **kw)
+    LMModel(cfg_s, attention=rec_s).hidden_states(params_s, x_s)
+    h_sp = LMModel(cfg_s, attention=flash_chunked_ref).hidden_states(
+        params_s, x_s)
+    rel_s = float((h_s - h_sp).norm() / h_sp.norm())
+    check(rel_s <= TOL_LATENTS, f"smoke-variant hidden states vs plain: {rel_s}")
+    err_s = max(attn_close(flash_chunked(q, k, v, **kw),
+                           flash_chunked_ref(q, k, v, **kw),
+                           f"B8 SIMT at the smoke shape, layer {i_}")
+                for i_, (q, k, v, kw) in enumerate(calls_s))
+    q, k, v, kw = calls_s[0]
+    qt, kt, vt = (t_.transpose(1, 2) for t_ in (q, k, v))
+    buf = torch.empty_like(qt)
+    b_kw = dict(scale=kw["scale"], softcap=kw["cap"], window=kw["window"])
+    b_, s_, hq_, d_ = q.shape
+    flops_s = 4.0 * b_ * hq_ * d_ * attn_pairs(s_, kw["window"])
+    bytes_s = nbytes(q, k, v) + q.numel() * q.element_size()
+    b_ms, b_by = bound(bytes_s, 3.0 * flops_s, TF32_FLOPS_PER_S)
+    simt_ms = graph_ms(lambda: flash_ops.launch_simt(qt, kt, vt, buf,
+                                                     **b_kw), 50)
+    lib_s = None
+    if not kw["cap"] and not kw["window"]:
+        lib_s = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+    plain_s = time_ms(lambda: flash_chunked_ref(q, k, v, **kw), 10)
+    row = "flash_attention_smoke_simt"
+    b8[row] = {"name": row, "route": "cuda", "source": B8_SOURCE["simt"],
+               "replaces": B8_REPLACES, "launches": 0, "max_abs_err": err_s,
+               "ms": simt_ms, "plain_ms": plain_s, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib_s}
+    b8_route[row] = "smoke"
+    out.append(b8[row])
+    log(f"[i] {cfg_s.name} ({cfg_s.n_layers} layers, {cfg_s.n_heads} heads "
+        f"of {cfg_s.resolved_head_dim}, {cfg_s.compute_dtype}), one batch: "
+        f"B8's SIMT kernel launched {launches_s['flash_attention_simt']} "
+        f"times, nothing else; hidden states finite, {rel_s:.3e} from the "
+        f"plain flash_chunked's (relative Frobenius, tol {TOL_LATENTS}); "
+        f"each layer's B8 call within {err_s:.3e} of the plain version "
+        f"(TOL_ATTN_F32); the SIMT kernel at this shape (q {tuple(q.shape)}, "
+        f"(B, S, H, D)) {simt_ms:.4f} ms from CUDA graphs, bound "
+        f"{b_ms:.4f} ms by {b_by}, plain {plain_s:.3f} ms"
+        + ("" if lib_s is None else f", SDPA {lib_s:.4f} ms"))
+    del model_s, params_s, x_s, h_s, h_sp, calls_s, q, k, v, qt, kt, \
+        vt, buf
+    # launches on the path each row's shape runs: the SIMT kernel runs
+    # only on the smoke variant's path, so its rows at the full shapes
+    # (timing only) count none
+    count_of = {"wgmma": launches_i["flash_attention_wgmma"],
+                "tf32": launches_f32["flash_attention_tf32"],
+                "simt": 0, "smoke": launches_s["flash_attention_simt"]}
     for name, row in b8.items():
-        row["launches"] = (launches_i["flash_attention_wgmma"]
-                           if b8_route[name] == "wgmma"
-                           else launches_f32["flash_attention_simt"])
+        row["launches"] = count_of[b8_route[name]]
     # where a batch's time goes: device time by kernel over two batches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1311,7 +1478,8 @@ def main():
             check(max_err(a, b) <= TOL_STEP_REL * float(b.abs().max()),
                   f"d={d_ld} step {name}: err {max_err(a, b)}")
         log(f"[j] C1 dim_ld {d_ld}: B1-B3, B5 and B7 against their plain "
-            f"versions at this width (scoring exact on quantised inputs); "
+            f"versions at this width (scoring exact on quantised inputs), "
+            f"the segment sum bit for bit against the CPU's index_add_; "
             f"one step kernels vs plain: ids/flags exact, Y/vel/zhat within "
             f"{TOL_STEP_REL}")
         del stq, st_k, st_p
@@ -1369,6 +1537,22 @@ def main():
             funcsne.funcsne_step(dataclasses.replace(cfg_w, **flags),
                                  forced(s_k), X, hp, ops=recs[tuple(flags)].ops)
             recs_launch[tuple(flags)] = dict(kernels.LAUNCHES)
+        # the segment sum at this width (its values gathered, not staged,
+        # above d = 2), bit for bit against the CPU's sequential index_add_
+        seg_err = max(held(f"segment_sum d={d_ld} {fl[0]}=False",
+                           *recs[fl].calls["segment_sum"], False)
+                      for fl in (("scatter_fused",), ("gather_fused",)))
+        _, (ix, vx, nx), _ = recs[("scatter_fused",)].calls["segment_sum"]
+        out_s = torch.empty((nx, vx.shape[1]), device=dev)
+        entry(f"segment_sum_d{d_ld}", "src/repro_torch/csrc/segment_sum.cu",
+              "src/repro/core/funcsne.py:732",
+              lambda: segment_sum(ix, vx, nx),
+              lambda: segment_sum_ref(ix, vx, nx), 20, nbytes(ix, vx, out_s),
+              1.0 * vx.numel(), seg_err,
+              recs_launch[("scatter_fused",)]["segment_sum"],
+              library=lambda: torch.zeros_like(out_s).index_add_(0, ix, vx),
+              tag="[j]")
+        del ix, vx, out_s
         _, (y, qid, nbr, coef, alpha), kw = recs[()].calls["ne_forces_scatter"]
         o3 = ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw)
         entry(f"ne_forces_scatter_d{d_ld}", "src/repro_torch/csrc/ne_forces.cu",
@@ -1407,7 +1591,8 @@ def main():
             + ("runtime width in tiles of 4" if d_ld not in (8, 16, 32)
                else "compile-time width")
             + f": B3 launches over the {CHUNK}-step chunk; B5 and B7 over "
-            f"one step of their paths, B7's three timed together)")
+            f"one step of their paths, B7's three timed together; the "
+            f"segment sum over one step of scatter_fused=False)")
         del st_w, s_k, recs, o3, o5, o7, b7w
 
     # B2 and B4 at K = 128, C = 64: init_state and one step of a config with

@@ -425,9 +425,9 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
             agg_q = attr_s * aggs[0] + rep_s * (aggs[1] + scale_neg * aggs[2])
         else:
             agg_q = attr_s * aggs[0] + rep_s * aggs[1]
-        # each directed edge also acts on its neighbour row
-        tgt = [ids.long()] + [i.long().clamp(0, n - 1).reshape(-1)
-                              for i in (st.hd_idx, st.ld_idx)]
+        # each directed edge also acts on its neighbour row (int32 ids)
+        tgt = [ids] + [i.clamp(0, n - 1).reshape(-1)
+                       for i in (st.hd_idx, st.ld_idx)]
         val = [agg_q] + [-(s * edge).reshape(-1, d)
                          for edge, s in ((edges[0], attr_s),
                                          (edges[1], rep_s))]

@@ -21,6 +21,7 @@ LAUNCHES = {
     "ne_forces_gather": 0,
     "segment_sum": 0,
     "flash_attention_wgmma": 0,
+    "flash_attention_tf32": 0,
     "flash_attention_simt": 0,
 }
 

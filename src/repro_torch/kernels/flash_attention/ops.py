@@ -1,12 +1,14 @@
-"""Causal GQA flash attention (B8): the plain version on the CPU, one of two
-CUDA kernels on the card.
+"""Causal GQA flash attention (B8): the plain version on the CPU, one of
+three CUDA kernels on the card.
 
-``kernel_route(dtype, d)`` chooses between the kernels, by dtype and D
-alone: bfloat16 at D in ``WGMMA_D`` runs the tensor-core kernel of
+``kernel_route(dtype, d)`` chooses the kernel by dtype and D alone:
+bfloat16 at D in ``WGMMA_D`` runs the tensor-core kernel of
 ``csrc/flash_attention_wgmma.cu`` (``launch_wgmma``, counted under
-``LAUNCHES["flash_attention_wgmma"]``); float32, and bfloat16 at any other
-D, run the SIMT kernel of ``csrc/flash_attention.cu`` (``launch_simt``,
-``LAUNCHES["flash_attention_simt"]``).  Neither stands in for the other: a
+``LAUNCHES["flash_attention_wgmma"]``); float32 at D in ``TF32_D`` its
+float32 counterpart in three TF32 products, ``csrc/flash_attention_tf32.cu``
+(``launch_tf32``, ``LAUNCHES["flash_attention_tf32"]``); every other dtype
+and D the SIMT kernel of ``csrc/flash_attention.cu`` (``launch_simt``,
+``LAUNCHES["flash_attention_simt"]``).  None stands in for another: a
 tensor that the chosen kernel does not take raises.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_D = (64, 128, 256)     # MusicGen-large, Qwen2-7B, Gemma2-2b
+TF32_D = (64, 128)           # MusicGen-large, Qwen2-7B
 # TMA reads q, k and v by 16-byte strides from 16-byte aligned addresses;
 # out is held to the same
 _TMA_ALIGN = 16
@@ -38,9 +41,13 @@ class _FlashArgs(ctypes.Structure):
 
 
 def kernel_route(dtype: torch.dtype, d: int) -> str:
-    """'wgmma' or 'simt': the kernel that a CUDA tensor of this dtype and
-    head width D launches."""
-    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_D else "simt"
+    """'wgmma', 'tf32' or 'simt': the kernel that a CUDA tensor of this
+    dtype and head width D launches."""
+    if dtype == torch.bfloat16 and d in WGMMA_D:
+        return "wgmma"
+    if dtype == torch.float32 and d in TF32_D:
+        return "tf32"
+    return "simt"
 
 
 def _check_common(q, k, v, out):
@@ -84,6 +91,19 @@ def launch_simt(q, k, v, out, *, scale: float, softcap: float = 0.0,
     LAUNCHES["flash_attention_simt"] += 1
 
 
+def _check_tma(q, k, v, out) -> None:
+    """What TMA reads and the tensor-core kernels store through: (b, h, s)
+    strides of a multiple of 16 bytes and data starting on 16 bytes."""
+    req = _build.require
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        nbytes = t.element_size()
+        req(all(st * nbytes % _TMA_ALIGN == 0 for st in t.stride()[:3]),
+            f"{name} strides {t.stride()}: TMA needs (b, h, s) strides of a "
+            f"multiple of {_TMA_ALIGN} bytes")
+        req(t.data_ptr() % _TMA_ALIGN == 0,
+            f"{name} must start on a {_TMA_ALIGN}-byte boundary for TMA")
+
+
 def launch_wgmma(q, k, v, out, *, scale: float, softcap: float = 0.0,
                  window: int = 0) -> None:
     """B8's tensor-core kernel into ``out``: bfloat16, D in ``WGMMA_D``,
@@ -95,23 +115,33 @@ def launch_wgmma(q, k, v, out, *, scale: float, softcap: float = 0.0,
     req(q.dtype == torch.bfloat16,
         f"the tensor-core kernel takes bfloat16, got {q.dtype}")
     req(d in WGMMA_D, f"D = {d}: the tensor-core kernel takes {WGMMA_D}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        nbytes = t.element_size()
-        req(all(st * nbytes % _TMA_ALIGN == 0 for st in t.stride()[:3]),
-            f"{name} strides {t.stride()}: TMA needs (b, h, s) strides of a "
-            f"multiple of {_TMA_ALIGN} bytes")
-        req(t.data_ptr() % _TMA_ALIGN == 0,
-            f"{name} must start on a {_TMA_ALIGN}-byte boundary for TMA")
+    _check_tma(q, k, v, out)
     _run("repro_flash_attention_wgmma", q, k, v, out, scale, softcap, window)
     LAUNCHES["flash_attention_wgmma"] += 1
+
+
+def launch_tf32(q, k, v, out, *, scale: float, softcap: float = 0.0,
+                window: int = 0) -> None:
+    """B8's float32 tensor-core kernel (3xTF32) into ``out``: float32, D in
+    ``TF32_D``, views with TMA's strides and alignment as for
+    ``launch_wgmma``."""
+    _check_common(q, k, v, out)
+    req = _build.require
+    d = q.shape[3]
+    req(q.dtype == torch.float32,
+        f"the float32 tensor-core kernel takes float32, got {q.dtype}")
+    req(d in TF32_D, f"D = {d}: the float32 tensor-core kernel takes {TF32_D}")
+    _check_tma(q, k, v, out)
+    _run("repro_flash_attention_tf32", q, k, v, out, scale, softcap, window)
+    LAUNCHES["flash_attention_tf32"] += 1
 
 
 def launch(q, k, v, out, *, scale: float, softcap: float = 0.0,
            window: int = 0) -> None:
     """Run B8 into ``out`` through the kernel ``kernel_route`` names for
     q's dtype and D."""
-    fn = launch_wgmma if kernel_route(q.dtype, q.shape[3]) == "wgmma" \
-        else launch_simt
+    fn = {"wgmma": launch_wgmma, "tf32": launch_tf32,
+          "simt": launch_simt}[kernel_route(q.dtype, q.shape[3])]
     fn(q, k, v, out, scale=scale, softcap=softcap, window=window)
 
 

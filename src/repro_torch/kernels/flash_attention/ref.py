@@ -87,3 +87,77 @@ def flash_attention_split_p_ref(q, k, v, *, scale: float | None = None,
         acc = acc * corr + pv
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+TF32_TERMS = ("hl", "lh", "hh")
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to tf32 (10 fraction bits), to nearest with ties
+    away from zero, as B8's float32 tensor-core kernel does on the bits:
+    (u + 0x1000) & ~0x1fff."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, terms):
+    """a @ b^T over the last dims from tf32 parts: x = hi + lo with hi =
+    tf32_rna(x), lo = tf32_rna(x - hi); the sum of the ``terms`` products
+    ("hh" hi.hi, "hl" hi.lo, "lh" lo.hi), each exact in float32 before
+    it is summed."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    parts = {"hh": (a_hi, b_hi), "hl": (a_hi, tf32_rna(b - b_hi)),
+             "lh": (tf32_rna(a - a_hi), b_hi)}
+    out = None
+    for term in terms:
+        x, y = parts[term]
+        prod = x @ y.transpose(-1, -2)
+        out = prod if out is None else out + prod
+    return out
+
+
+def flash_attention_tf32_ref(q, k, v, *, scale: float | None = None,
+                             softcap: float = 0.0, window: int = 0,
+                             block_k: int | None = None,
+                             terms=TF32_TERMS):
+    """The arithmetic of B8's float32 tensor-core kernel in plain PyTorch.
+
+    Q K^T and P V each as three products of tf32 parts (``_tf32_product``:
+    hi.lo + lo.hi + hi.hi, the lo.lo term dropped), an online softmax over
+    tiles of ``block_k`` keys (the kernel's: 64 at D = 64, 32 at D = 128)
+    with a float32 running max and denominator summed from float32 p, and
+    P split like the other operands.  ``terms`` names the products kept:
+    ``("hh",)`` is one TF32 pass, the variant not taken.  Arguments and
+    result as ``flash_attention_ref``, float32.
+    """
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    if block_k is None:
+        block_k = 64 if D <= 64 else 32
+    k = k.repeat_interleave(group, dim=1).float()
+    v = v.repeat_interleave(group, dim=1).float()
+    qf = q.float()
+    rows = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, Hq, S, 1), _NEG, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), device=q.device)
+    acc = torch.zeros((B, Hq, S, D), device=q.device)
+    for c0 in range(0, S, block_k):
+        kc, vc = k[:, :, c0:c0 + block_k], v[:, :, c0:c0 + block_k]
+        s = _tf32_product(qf, kc, terms) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        cols = torch.arange(c0, c0 + kc.shape[2], device=q.device)[None, :]
+        mask = cols <= rows
+        if window > 0:
+            mask = mask & (cols > rows - window)
+        s = torch.where(mask, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where((s > _NEG / 2) & (m_new > _NEG / 2),
+                        torch.exp(s - m_new), 0.0)
+        corr = torch.where(m > _NEG / 2, torch.exp(m - m_new), 0.0)
+        l = corr * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _tf32_product(p, vc.transpose(-1, -2), terms)
+        m = m_new
+    return acc / l.clamp_min(1e-30)

@@ -4,7 +4,8 @@
 
 ``flash_chunked`` takes the model's (B, S, H, D) layout.  On a CUDA tensor
 it launches B8 (``kernels.flash_attention``: the tensor-core kernel for
-bf16 at D 64, 128 and 256, the SIMT kernel otherwise) through strides,
+bf16 at D 64, 128 and 256, its 3xTF32 counterpart for float32 at D 64 and
+128, the SIMT kernel otherwise) through strides,
 with no transpose copy; on a CPU tensor it runs
 ``flash_chunked_ref``, the plain online softmax over KV chunks of the JAX
 function, which also runs on the card as B8's plain version.

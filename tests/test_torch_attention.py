@@ -132,7 +132,8 @@ def test_flash_chunked_ref_offset_and_latent_values_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
-B8_KEYS = ("flash_attention_wgmma", "flash_attention_simt")
+B8_KEYS = ("flash_attention_wgmma", "flash_attention_tf32",
+           "flash_attention_simt")
 
 
 @pytest.fixture
@@ -172,12 +173,14 @@ def test_dispatch_on_device(monkeypatch):
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 192, "simt"), (torch.float32, 64, "simt"),
-    (torch.float32, 256, "simt")])
+    (torch.bfloat16, 192, "simt"), (torch.float32, 64, "tf32"),
+    (torch.float32, 256, "simt"), (torch.float32, 128, "tf32"),
+    (torch.float32, 96, "simt"), (torch.float32, 32, "simt")])
 def test_dispatch_by_dtype_and_d(launched, dtype, d, route):
     """A CUDA tensor takes the kernel its dtype and D name, and counts the
     launch under that kernel's key only: bf16 at D 64, 128 and 256 the
-    tensor-core kernel, the rest the SIMT kernel; so does the model path
+    tensor-core kernel, float32 at D 64 and 128 the float32 tensor-core
+    kernel (3xTF32), the rest the SIMT kernel; so does the model path
     (flash_chunked on the (B, S, H, D) layout, through strides)."""
     from repro_torch.kernels.flash_attention import ops
     assert ops.kernel_route(dtype, d) == route
@@ -209,8 +212,28 @@ def test_tma_stride_raises_without_fallback(launched):
     assert launched == ["repro_flash_attention_simt"]
 
 
+def test_tf32_tma_stride_raises_without_fallback(launched):
+    """float32 at D 64 routes to the float32 tensor-core kernel; an s
+    stride of 65 floats (260 bytes) is no multiple of 16 bytes, so it
+    raises there and through ``launch``, rather than run the SIMT kernel,
+    which takes it."""
+    from repro_torch.kernels.flash_attention import ops
+    assert ops.kernel_route(torch.float32, 64) == "tf32"
+    q = torch.empty((1, 4, 16, 65), device="meta")[..., :64]
+    kv = torch.empty((1, 2, 16, 64), device="meta")
+    out = torch.empty((1, 4, 16, 64), device="meta")
+    for fn in (ops.launch, ops.launch_tf32):
+        with pytest.raises(ValueError, match="TMA"):
+            fn(q, kv, kv, out, scale=1.0)
+    assert launched == []
+    ops.launch_simt(q, kv, kv, out, scale=1.0)
+    assert launched == ["repro_flash_attention_simt"]
+    assert kernels.LAUNCHES["flash_attention_tf32"] == 0
+
+
 @pytest.mark.parametrize("bad", ["d", "heads", "dtype", "stride",
-                                 "wgmma_d", "wgmma_dtype", "tma_stride"])
+                                 "wgmma_d", "wgmma_dtype", "tma_stride",
+                                 "tf32_d", "tf32_dtype"])
 def test_kernel_input_checks(launched, bad):
     """B8's wrappers refuse what their kernels do not take (checked before
     any build or launch, so it runs here on meta tensors)."""
@@ -228,6 +251,12 @@ def test_kernel_input_checks(launched, bad):
         fn = ops.launch_wgmma
     if bad == "wgmma_dtype":
         fn = ops.launch_wgmma
+    if bad == "tf32_d":
+        shape_q, shape_kv = (1, 4, 16, 96), (1, 2, 16, 96)
+        fn = ops.launch_tf32
+    if bad == "tf32_dtype":
+        dt = torch.bfloat16
+        fn = ops.launch_tf32
     q = torch.empty(shape_q, dtype=dt, device="meta")
     k = torch.empty(shape_kv, dtype=dt, device="meta")
     if bad == "stride":

@@ -22,7 +22,8 @@ import torch  # noqa: E402
 
 from repro.core import funcsne as jf  # noqa: E402
 from repro_torch.core import funcsne as tf  # noqa: E402
-from repro_torch.kernels.segment_sum.ops import segment_runs, segment_sum  # noqa: E402
+from repro_torch.kernels.segment_sum.ops import segment_sum  # noqa: E402
+from test_torch_segment_csr import segment_runs  # noqa: E402
 from test_torch_step import F_ATOL, F_RTOL, _assert_states_match, _problem  # noqa: E402
 
 torch.set_num_threads(1)
@@ -171,8 +172,8 @@ def test_segment_sum_is_the_sequential_index_add():
         old.index_add_(0, idx[p], val[p])
     new = segment_sum(idx, val, n)
     assert torch.equal(new, old)
-    # the card's algorithm, in python: the wrapper's stable order and run
-    # starts, then each row's run walked in order as the kernel does
+    # the card's algorithm, in python: the kernel's counting-sort order and
+    # run starts, then each row's run walked in order as the kernel does
     perm, offs = segment_runs(idx, n)
     assert torch.equal(perm, torch.sort(idx, stable=True).indices)
     seq = torch.zeros((n, 3))
