@@ -22,7 +22,9 @@ checks them:
       neighbours on a fixed 2,000-row subsample above RECALL_MIN, steps/s
       and the R_NX AUC on a 5,000-row subsample;
   (e) each kernel's time (CUDA events) beside its bound and its plain
-      version's time, and a short profiler window of the step;
+      version's time; for B1-B3 also their time from CUDA graphs and a
+      profiler split of 20 calls by kernel name; and a short profiler
+      window of the step;
   (f) the flag paths (gather_fused=False, scatter_fused=False,
       merge_fused=False, c_hd_rev=4, cand_fused=False), each from the main
       path's final state: its kernels against their plain versions at its
@@ -32,7 +34,8 @@ checks them:
       RECALL_MIN and above the recall of the state it started from; steps/s
       beside the default path's from the same state); B6 also at
       init_state's C = 32 and at C = 14 of c_hd_rev = 4; the times of B5-B7
-      and of B4 at FUnc-SNE's HD and LD-rescore shapes; the segment sum of
+      and of B4 at FUnc-SNE's HD and LD-rescore shapes (each also from
+      CUDA graphs and split by kernel name); the segment sum of
       the unfused paths bit-identical over two calls, each of its passes
       (count, scan, place, order and sum) timed from a profiler trace and
       the whole call from CUDA graphs beside ``index_add_``, its run
@@ -46,7 +49,8 @@ checks them:
       ``nnd(max_iter=NND_ITERS, tol=1e-3)`` with the launch counters set to
       0 just before (B1 once, B4 once per iteration, nothing else; the
       update fraction falls; recall above RECALL_MIN), iterations/s, the
-      recall after NND_SHORT iterations, and the time of B4 at NND's shape.
+      recall after NND_SHORT iterations, and the time of B4 at NND's shape
+      (also from CUDA graphs and split by kernel name).
 
   (h) B8, causal GQA flash attention, alone, through ``flash_attention``:
       MusicGen-large's prefill shape (B 4, S 1500, 32 heads of 64, bf16),
@@ -87,12 +91,19 @@ checks them:
       against the CPU's ``index_add_``, one step kernels vs plain, a
       50-step chunk on the kernels equal to its steps one by one, and
       where those steps part from the plain versions' (reported)), and B2
-      and B4 at K = 128, C = 64 from one step of such a config; each row's
+      and B4 at K = 128, C = 64 from one step of such a config; B3, B2's LD
+      refinement and B2/B4 at K = 128 also from CUDA graphs and split by
+      kernel name; each row's
       launches counted over a step or chunk of its own path and shape; C3,
       two runs of one step and of F_ITERS
       steps of ``scatter_fused=False`` and ``gather_fused=False`` from one
       state bit-identical; C2, ``fit(snapshot_every=100)`` returns 5
       snapshots, the last the returned Y, and a state equal to (d)'s.
+
+B2 and B4 run the lane route where rows have at most 8 floats and K + C
+<= 32 (the LD refinement at dim_ld 2, 5, 8), the warp route elsewhere (HD,
+NND, dim_ld 32, K = 128); each route has its own launch counter, and
+every expected-launch set follows the route of its shape.
 
 Phase (b) also holds threefry's draws made on the card (randint at
 (70,000, 10) with spans 70,000 and 32, bernoulli, a fold_in/split chain)
@@ -358,7 +369,7 @@ def main():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.knn_merge.ops import MAX_C, MAX_K
+    from repro_torch.kernels.knn_merge.ops import MAX_C, MAX_K, merge_route
     from repro_torch.configs.base import get_arch, smoke_variant
     from repro_torch.examples import embed_latents
     from repro_torch.models.attention import flash_chunked, flash_chunked_ref
@@ -528,8 +539,17 @@ def main():
     launches = dict(kernels.LAUNCHES)
     log(f"[d] main path: init {t_init:.2f}s, {ITERS} steps in {t_run:.2f}s "
         f"= {ITERS / t_run:.1f} steps/s; launches {launches}")
+    def merge_key(op, m, mode, k, c):
+        """The launch counter of B2 ("knn_merge_cand") or B4 ("knn_merge")
+        on rows of m floats: the lane route's, or the warp route's by
+        mode."""
+        return (f"{op}_lanes" if merge_route(m, k, c) == "lanes"
+                else f"{op}_{mode}")
+    c_ld = cfg.c_ld_non + cfg.c_ld_hd + cfg.c_ld_rand
+    ld_key = {op: merge_key(op, cfg.dim_ld, "ld", cfg.k_ld, c_ld)
+              for op in ("knn_merge_cand", "knn_merge")}
     main_kernels = {"pairwise_sqdist_gather", "knn_merge_cand_hd",
-                    "knn_merge_cand_ld", "ne_forces_scatter"}
+                    ld_key["knn_merge_cand"], "ne_forces_scatter"}
     for name, cnt in launches.items():
         check((cnt > 0) == (name in main_kernels),
               f"kernel {name}: {cnt} launches on the main path")
@@ -548,8 +568,28 @@ def main():
     # ---- (e) per-kernel times -------------------------------------------
     out = []
 
+    def kernel_split(fn, reps=20):
+        """Device ms per call of each kernel and memset that ``fn`` runs,
+        by name, from a profiler trace of ``reps`` calls."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {ev.key: ev.self_device_time_total / 1e3 / reps
+                 for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA
+                 and ev.self_device_time_total > 0}
+        check(split, "the profiler saw no kernel")
+        return split
+
     def entry(name, source, replaces, fn, plain, reps, bytes_, flops, err,
-              count, library=None, tag="[e]", peak=None):
+              count, library=None, tag="[e]", peak=None, graphed=False):
+        """One kernel row: its time issued from the host (CUDA events), the
+        plain version's and the library call's; with ``graphed`` also its
+        time from CUDA graphs and a profiler split by kernel name."""
         ms = time_ms(fn, reps)
         plain_ms = time_ms(plain, max(2, reps // 10))
         lib_ms = None if library is None else time_ms(library,
@@ -562,6 +602,15 @@ def main():
         log(f"{tag} {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain_ms:.3f} ms"
             + ("" if lib_ms is None else f", library {lib_ms:.3f} ms"))
+        if graphed:
+            g_ms = graph_ms(fn, reps)
+            split = kernel_split(fn)
+            log(f"    {name}: {g_ms:.4f} ms from CUDA graphs ({b_ms / g_ms:.1%}"
+                f" of the bound); device ms per call by kernel (profiler, 20 "
+                f"calls): " + "; ".join(f"{k_[:60]} {v_:.4f}" for k_, v_ in
+                                        sorted(split.items(),
+                                               key=lambda kv: -kv[1]))
+                + f"; sum {sum(split.values()):.4f}")
 
     # the final main-path state gives the timed inputs
     ids = torch.arange(N, dtype=torch.int32, device=dev)
@@ -573,10 +622,10 @@ def main():
           lambda: pairwise_sqdist_gather_ref(X, ids, cand), 10,
           nbytes(X, ids, cand, out_b), 3.0 * N * cfg.k_hd * DIM,
           errs["pairwise_sqdist_gather"],
-          launches["pairwise_sqdist_gather"])
+          launches["pairwise_sqdist_gather"], graphed=True)
     del out_b
 
-    def b2_entry(name, call, err, count, tag):
+    def b2_entry(name, call, err, count, tag, graphed=False):
         """B2's time beside its bound: every input read once, every output
         written once, 3 flops per column of each row that this call's data
         makes it score (new candidates, and the current rows in rescore)."""
@@ -599,7 +648,8 @@ def main():
               nbytes(x, qid, cur_idx, cur_d, kw["salt"], kw.get("active"),
                      kw.get("cur_valid"), *kw["first_tables"],
                      *kw["second_tables"], *outs),
-              3.0 * scored * x.shape[1], err, count, tag=tag)
+              3.0 * scored * x.shape[1], err, count, tag=tag,
+              graphed=graphed)
         log(f"    {name}: x {tuple(x.shape)} K={cur_idx.shape[1]} C="
             f"{c_cand.shape[1]}, {scored} rows scored "
             f"({valid.float().mean():.3f} of candidates new)")
@@ -612,7 +662,8 @@ def main():
     for mode in ("hd", "ld"):
         b2_entry(f"knn_merge_cand_{mode}", rec.calls[f"knn_merge_cand_{mode}"],
                  errs[f"knn_merge_cand_{mode}"],
-                 launches[f"knn_merge_cand_{mode}"], "[e]")
+                 launches[ld_key["knn_merge_cand"] if mode == "ld"
+                          else "knn_merge_cand_hd"], "[e]", graphed=True)
 
     _, (y, qid, nbr, coef, alpha), kw = rec.calls["ne_forces_scatter"]
     scats, wsums = ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw)
@@ -622,7 +673,7 @@ def main():
           lambda: ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw), 50,
           nbytes(y, qid, nbr, coef, alpha, *scats, *wsums),
           20.0 * nbr.numel(), errs["ne_forces_scatter"],
-          launches["ne_forces_scatter"])
+          launches["ne_forces_scatter"], graphed=True)
 
     # where a step's time goes: each phase's wall time (host clock around
     # synchronised calls) at the final state, then device time by kernel
@@ -684,7 +735,8 @@ def main():
     # ---- (f) the flag paths ----------------------------------------------
     # (flags, the launch counters its F_ITERS steps must move; every other
     # counter must stay at 0)
-    b2, b3 = {"knn_merge_cand_hd", "knn_merge_cand_ld"}, {"ne_forces_scatter"}
+    b2 = {"knn_merge_cand_hd", ld_key["knn_merge_cand"]}
+    b3 = {"ne_forces_scatter"}
     paths = {
         "default": ({}, b2 | b3),
         "gather_fused=False": (dict(gather_fused=False),
@@ -696,7 +748,7 @@ def main():
                               {"pairwise_sqdist_gather"} | b3),
         "c_hd_rev=4": (dict(c_hd_rev=4), b2 | b3),
         "cand_fused=False": (dict(cand_fused=False),
-                             {"knn_merge_hd", "knn_merge_ld"} | b3),
+                             {"knn_merge_hd", ld_key["knn_merge"]} | b3),
         "default, again": ({}, b2 | b3),   # brackets the flag paths' times
     }
     exact_ops = {"pairwise_sqdist_gather", "knn_merge_cand", "pairwise_sqdist",
@@ -863,7 +915,7 @@ def main():
           f_launch["gather_fused=False"]["pairwise_sqdist"],
           library=lambda: torch.cdist(
               q[:, None, :], c, compute_mode="donot_use_mm_for_euclid_dist"),
-          tag="[f]")
+          tag="[f]", graphed=True)
     del q, c, out_6
     b7 = [f_rec["gather_fused=False"].calls[f"ne_forces_{i}"][1:]
           for i in range(3)]
@@ -876,7 +928,8 @@ def main():
               t for o in b7_out for t in o))),
           20.0 * sum(a[2].numel() for a, _ in b7),
           max(f_err[f"ne_forces_{i}"] for i in range(3)),
-          f_launch["gather_fused=False"]["ne_forces"], tag="[f]")
+          f_launch["gather_fused=False"]["ne_forces"], tag="[f]",
+          graphed=True)
     log("    (B7: the three launches of one step, timed together)")
     _, (x5, q5, n5, c5, a5), kw5 = f_rec["scatter_fused=False"].calls[
         "ne_forces_gather"]
@@ -888,7 +941,8 @@ def main():
           lambda: ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5), 50,
           nbytes(x5, q5, n5, c5, a5, *o5), 20.0 * n5.numel(),
           f_err["ne_forces_gather"],
-          f_launch["scatter_fused=False"]["ne_forces_gather"], tag="[f]")
+          f_launch["scatter_fused=False"]["ne_forces_gather"], tag="[f]",
+          graphed=True)
 
     _, (ix, vx, nx), _ = f_rec["scatter_fused=False"].calls["segment_sum"]
     out_s = torch.empty((nx, vx.shape[1]), device=dev)
@@ -964,7 +1018,7 @@ def main():
         del got, v_p
     del pile
 
-    def b4_entry(name, call, err, count, tag):
+    def b4_entry(name, call, err, count, tag, graphed=False):
         """B4's time beside its bound: every input read once, every output
         written once, 3 flops per column of each row that this call's data
         makes it score (new candidates, and the current rows in rescore)."""
@@ -980,7 +1034,8 @@ def main():
               "src/repro/kernels/knn_merge/kernel.py:173",
               lambda: knn_merge(*args, **kw), lambda: knn_merge_ref(*args, **kw),
               20, nbytes(x, qid, cur_idx, cur_d, cand, ca, cv, *outs),
-              3.0 * scored * x.shape[1], err, count, tag=tag)
+              3.0 * scored * x.shape[1], err, count, tag=tag,
+              graphed=graphed)
         log(f"    {name}: x {tuple(x.shape)} K={cur_idx.shape[1]} C="
             f"{cand.shape[1]}, {scored} rows scored "
             f"({float(valid.float().mean()):.3f} of candidates new)")
@@ -989,7 +1044,10 @@ def main():
     for mode in ("hd", "ld"):
         b4_entry(f"knn_merge_{mode}", legacy[f"knn_merge_{mode}"],
                  f_err[f"knn_merge_{mode}"],
-                 f_launch["cand_fused=False"][f"knn_merge_{mode}"], "[f]")
+                 f_launch["cand_fused=False"][
+                     ld_key["knn_merge"] if mode == "ld" else "knn_merge_hd"],
+                 "[f]",
+                 graphed=True)
 
     # what the threefry draws of one cand_fused=False step cost on the card:
     # the host key chain and gate, the HD candidates (behind the gate), the
@@ -1085,7 +1143,7 @@ def main():
         f"{rec1:.4f}); update fractions "
         + " ".join(f"{h:.4f}" for h in hist))
     b4_entry("knn_merge_nnd", recr.calls["knn_merge_hd"], g_err,
-             launches_g["knn_merge_hd"], "[g]")
+             launches_g["knn_merge_hd"], "[g]", graphed=True)
 
     # ---- (h) B8 alone ------------------------------------------------------
     def b8_rows(name, fns, reps, bytes_, flops, errs, library=None,
@@ -1495,7 +1553,8 @@ def main():
         sps_w = CHUNK / (time.perf_counter() - t0)
         launches_w = dict(kernels.LAUNCHES)
         moved = {k_ for k_, v_ in launches_w.items() if v_}
-        check(moved == main_kernels - {"pairwise_sqdist_gather"},
+        key_w = merge_key("knn_merge_cand", d_ld, "ld", cfg.k_ld, c_ld)
+        check(moved == {"knn_merge_cand_hd", key_w, "ne_forces_scatter"},
               f"d={d_ld} chunk launched {sorted(moved)}")
         check(bool(torch.isfinite(s_k.Y).all()), f"d={d_ld}: Y not finite")
         # the chunk's steps one at a time through the kernels (the chunk
@@ -1562,7 +1621,13 @@ def main():
               20, nbytes(y, qid, nbr, coef, alpha, *o3[0], *o3[1]),
               (12.0 + 4.0 * d_ld) * nbr.numel(),
               held("B3", *recs[()].calls["ne_forces_scatter"], False),
-              launches_w["ne_forces_scatter"], tag="[j]")
+              launches_w["ne_forces_scatter"], tag="[j]", graphed=True)
+        # B2's LD refinement at this width: the lane route up to rows of
+        # LANE_M floats, the warp route past them
+        b2_entry(f"knn_merge_cand_ld_d{d_ld}",
+                 recs[()].calls["knn_merge_cand_ld"],
+                 held("B2 LD", *recs[()].calls["knn_merge_cand_ld"], False),
+                 launches_w[key_w], "[j]", graphed=True)
         _, (x5, q5, n5, c5, a5), kw5 = recs[("scatter_fused",)].calls[
             "ne_forces_gather"]
         o5 = [t for t in flat(ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5))
@@ -1618,7 +1683,7 @@ def main():
         err = held(f"{op} K=128 C={c_k}", *call, False)
         name = f"{op}_hd_K128_C{c_k}"
         (b2_entry if op == "knn_merge_cand" else b4_entry)(
-            name, call, err, count, "[j]")
+            name, call, err, count, "[j]", graphed=True)
         del recq, recr, s_q, s_r, call
     log(f"[j] C1 B2 and B4 at K = 128, C = {c_k}, one step of each path: "
         f"ids, distances and flags exact against the plain versions on "

@@ -1,7 +1,9 @@
 // B2 and B4: neighbour refinement -- score, dedup and merge in one launch,
 // B2 generating its candidates in the kernel, B4 reading a precomputed
-// block.  One kernel body serves both (knn_merge_kernel<kPre>); the
-// candidate source and the validity source are its compile-time choice.
+// block.  One kernel body serves both in each of two routes
+// (knn_merge_kernel<kPre>, the warp route; knn_merge_lanes_kernel<kPre>,
+// the lane route); the candidate source and the validity source are its
+// compile-time choice, the route the wrapper's choice by shape.
 //
 // B2 replaces: src/repro/kernels/knn_merge/kernel.py, knn_merge_cand_pallas
 //   (body _make_cand_kernel, slot layout _slot_plan, merge merge_select).
@@ -28,6 +30,15 @@
 // 1.11 ms; FUnc-SNE HD, C = 10: 2.41 GB, 0.72 ms) when every candidate is
 // new.
 //
+// The lane route, rows of at most kLaneM = 8 floats with K + C <= 32 (the
+// LD refinement): on the warp route such a row costs K + C warp-wide
+// reductions in turn, each over 2 useful lanes at d = 2.  Here one lane
+// holds one element of [current, candidates] and scores it alone, so the
+// row's distances take one round trip; dedup is one __match_any_sync and
+// the rank merge runs on shuffles (see knn_merge_lanes_kernel).  Its
+// distances are bit for bit the warp route's (lane_sqdist).
+//
+// The warp route (everything else: HD, NND, wide rows, long lists).
 // Design: one warp per query row.  Lane g takes candidate slot g: B2
 // generates it from the counter hash (slot g draws 2g and 2g+1, exactly
 // the JAX sampler), B4 reads it from the block; then the dedup (self /
@@ -53,6 +64,8 @@ namespace {
 constexpr int kMaxK = 1024;
 constexpr int kMaxC = 128;
 constexpr int kWarps = 4;
+constexpr int kLaneM = 8;      // the lane route's widest row
+constexpr int kLaneWarps = 8;
 enum SlotKind { kUniform = 0, kOneHop = 1, kTwoHop = 2, kExtra = 3 };
 
 }  // namespace
@@ -107,6 +120,33 @@ __host__ __device__ inline size_t warp_smem_bytes(int k, int c) {
   return sizeof(int) * (2 * static_cast<size_t>(k) + 4 * static_cast<size_t>(c));
 }
 
+// Candidate slot g of row r, generated (B2) as the JAX sampler draws it:
+// slot g takes draws 2g and 2g + 1 of the counter hash of (salt, row).
+__device__ __forceinline__ int candidate(const MergeArgs& a, int64_t r, int g,
+                                         int kind, int f, int s, int col,
+                                         uint32_t salt, int row) {
+  const uint32_t urow = static_cast<uint32_t>(row);
+  if (kind == kUniform) {
+    return repro::counter_randint(salt, urow, 2 * g, static_cast<int>(a.n));
+  }
+  if (kind == kOneHop) {
+    const int fw = a.first_w[f];
+    return a.first[f][r * fw + repro::counter_randint(salt, urow, 2 * g, fw)];
+  }
+  if (kind == kTwoHop) {
+    const int fw = a.first_w[f];
+    const int64_t n2 = a.second_n[s];
+    const int sw = a.second_w[s];
+    int64_t mid =
+        a.first[f][r * fw + repro::counter_randint(salt, urow, 2 * g, fw)];
+    if (mid == repro::kSentinel) mid = row % n2;
+    mid = repro::clamp_row(mid, n2);
+    return a.second[s][mid * sw +
+                       repro::counter_randint(salt, urow, 2 * g + 1, sw)];
+  }
+  return a.extra[r * a.extra_w + col];
+}
+
 // kPre: candidates and their validity from the (B, C) blocks (B4), else
 // generated from the slot plan and checked against `active` (B2).
 template <bool kPre>
@@ -127,7 +167,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int64_t q = repro::clamp_row(row, a.n);
   uint32_t salt = 0;  // B4 has no salt
   if constexpr (!kPre) salt = static_cast<uint32_t>(*a.salt);
-  const uint32_t urow = static_cast<uint32_t>(row);
   const bool rescore = a.cur_d == nullptr;
 
   for (int i = lane; i < k; i += 32) {
@@ -138,23 +177,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     int v;
     if constexpr (kPre) {
       v = a.cand[r * c + g];
-    } else if (a.kind[g] == kUniform) {
-      v = repro::counter_randint(salt, urow, 2 * g, static_cast<int>(a.n));
-    } else if (a.kind[g] == kOneHop) {
-      const int f = a.tab[g], fw = a.first_w[f];
-      v = a.first[f][r * fw + repro::counter_randint(salt, urow, 2 * g, fw)];
-    } else if (a.kind[g] == kTwoHop) {
-      const int f = a.tab[g], s = a.sec[g], fw = a.first_w[f];
-      const int64_t n2 = a.second_n[s];
-      const int sw = a.second_w[s];
-      int64_t mid =
-          a.first[f][r * fw + repro::counter_randint(salt, urow, 2 * g, fw)];
-      if (mid == repro::kSentinel) mid = row % n2;
-      mid = repro::clamp_row(mid, n2);
-      v = a.second[s][mid * sw +
-                      repro::counter_randint(salt, urow, 2 * g + 1, sw)];
     } else {
-      v = a.extra[r * a.extra_w + a.col[g]];
+      v = candidate(a, r, g, a.kind[g], a.tab[g], a.sec[g], a.col[g], salt,
+                    row);
     }
     L.cand[g] = v;
     L.gat[g] = static_cast<int>(repro::clamp_row(v, a.n));
@@ -231,15 +256,165 @@ int launch(const MergeArgs* args, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ||xa - xb||^2 by one lane, for m <= kLaneM: bit for bit the value that
+// warp_sqdist leaves in every lane.  There, part p of the row (a float, or
+// a float4 when vec4) is lane p's sum, and the butterfly adds the lanes'
+// sums in a fixed tree; lanes past the row hold exact zeros, so offsets 16
+// and 8 change nothing and the tree over offsets 4, 2, 1 remains.  The
+// explicit roundings keep nvcc from contracting a product into the next
+// sum, which warp_sqdist does not do either.
+__device__ __forceinline__ float lane_sqdist(const float* __restrict__ xa,
+                                             const float* __restrict__ xb,
+                                             int m, bool vec4) {
+  float part[kLaneM];
+#pragma unroll
+  for (int p = 0; p < kLaneM; ++p) part[p] = 0.f;
+  if (vec4) {
+    const float4* va = reinterpret_cast<const float4*>(xa);
+    const float4* vb = reinterpret_cast<const float4*>(xb);
+#pragma unroll
+    for (int p = 0; p < kLaneM / 4; ++p) {
+      if (p < m / 4) {
+        const float4 u = __ldg(va + p);
+        const float4 w = __ldg(vb + p);
+        const float dx = u.x - w.x, dy = u.y - w.y, dz = u.z - w.z,
+                    dw = u.w - w.w;
+        float acc = 0.f;
+        acc += dx * dx + dy * dy + dz * dz + dw * dw;  // as warp_sqdist
+        part[p] = acc;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < kLaneM; ++p) {
+      if (p < m) {
+        const float d = __fsub_rn(__ldg(xa + p), __ldg(xb + p));
+        part[p] = __fmul_rn(d, d);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kLaneM / 2; off; off >>= 1) {
+#pragma unroll
+    for (int p = 0; p < off; ++p) part[p] = __fadd_rn(part[p], part[p + off]);
+  }
+  return part[0];
+}
+
+// The lane route (m <= kLaneM, K + C <= 32): lane e holds element e of
+// [current list, candidates] -- its raw id, its validity and its distance,
+// scored by the lane itself -- so the row's distances take one round trip
+// instead of K + C warp reductions in turn.  A candidate is a duplicate
+// when a lower lane (the current list, then the earlier candidates) holds
+// the same raw id: one __match_any_sync.  Each lane ranks its element by
+// the tie rule of the warp route over the others' distances, read by
+// shuffles, and writes it to slot rank if rank < K.  B2's slot plan is
+// copied to shared memory once a block, so the lanes do not read kernel
+// parameters at lane-dependent indices.
+template <bool kPre>
+__global__ void __launch_bounds__(kLaneWarps * 32)
+    knn_merge_lanes_kernel(const MergeArgs a, bool vec4) {
+  __shared__ int plan[32];  // B2: kind | tab << 2 | sec << 3 | col << 4
+  if constexpr (!kPre) {
+    for (int g = threadIdx.x; g < a.c; g += blockDim.x)
+      plan[g] = a.kind[g] | a.tab[g] << 2 | a.sec[g] << 3 | a.col[g] << 4;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kLaneWarps + (threadIdx.x >> 5);
+  if (r >= a.b) return;  // uniform per warp
+  const int k = a.k, c = a.c, total = k + c;
+  const bool cur = lane < k, live = lane < total;
+  const int g = lane - k;
+  const int row = a.qid[r];
+  const int64_t q = repro::clamp_row(row, a.n);
+  const bool rescore = a.cur_d == nullptr;
+
+  int v = repro::kSentinel;
+  if (cur) {
+    v = a.cur_idx[r * k + lane];
+  } else if (live) {
+    if constexpr (kPre) {
+      v = a.cand[r * c + g];
+    } else {
+      const int pl = plan[g];
+      v = candidate(a, r, g, pl & 3, (pl >> 2) & 1, (pl >> 3) & 1, pl >> 4,
+                    static_cast<uint32_t>(*a.salt), row);
+    }
+  }
+  const int64_t t = repro::clamp_row(v, a.n);
+  const unsigned lower =
+      __match_any_sync(repro::kFullMask, v) & ((1u << lane) - 1u);
+  bool ok;
+  if (cur) {
+    ok = !rescore || a.cur_valid[r * k + lane];
+  } else {
+    ok = live && v != repro::kSentinel && v != row && lower == 0u;
+    if constexpr (kPre) {
+      if (a.cand_valid != nullptr) ok = ok && a.cand_valid[r * c + g];
+    } else if (a.active != nullptr) {
+      ok = ok && a.active[t];
+    }
+  }
+  float d = INFINITY;
+  if (cur && !rescore) {
+    d = a.cur_d[r * k + lane];
+  } else if (ok) {
+    d = lane_sqdist(a.x + q * a.m, a.x + t * a.m, static_cast<int>(a.m), vec4);
+  }
+
+  const float worst = __shfl_sync(repro::kFullMask, d, k - 1);
+  const unsigned imask =
+      __ballot_sync(repro::kFullMask, live && !cur && d < worst);
+  if (lane == 0) a.improved[r] = imask != 0u;
+  int rank = 0;
+  for (int j = 0; j < total; ++j) {
+    const float dj = __shfl_sync(repro::kFullMask, d, j);
+    rank += (dj < d) || (dj == d && j < lane);
+  }
+  if (live && rank < k) {
+    a.new_idx[r * k + rank] = v;
+    a.new_d[r * k + rank] = d;
+  }
+}
+
+template <bool kPre>
+int launch_lanes(const MergeArgs* args, cudaStream_t stream) {
+  if (args->k < 1 || args->c < 1 || args->k + args->c > 32 || args->m < 1 ||
+      args->m > kLaneM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (args->b > 0) {
+    const int64_t blocks = (args->b + kLaneWarps - 1) / kLaneWarps;
+    knn_merge_lanes_kernel<kPre>
+        <<<static_cast<unsigned>(blocks), kLaneWarps * 32, 0, stream>>>(
+            *args, repro::can_vec4(args->x, args->m));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// B2: candidates generated in the kernel.
+// B2: candidates generated in the kernel; the warp route.
 extern "C" int repro_knn_merge_cand(const MergeArgs* args,
                                     cudaStream_t stream) {
   return launch<false>(args, stream);
 }
 
-// B4: candidates from the precomputed block.
+// B2, the lane route (m <= 8, K + C <= 32).
+extern "C" int repro_knn_merge_cand_lanes(const MergeArgs* args,
+                                          cudaStream_t stream) {
+  return launch_lanes<false>(args, stream);
+}
+
+// B4: candidates from the precomputed block; the warp route.
 extern "C" int repro_knn_merge(const MergeArgs* args, cudaStream_t stream) {
   return launch<true>(args, stream);
+}
+
+// B4, the lane route (m <= 8, K + C <= 32).
+extern "C" int repro_knn_merge_lanes(const MergeArgs* args,
+                                     cudaStream_t stream) {
+  return launch_lanes<true>(args, stream);
 }

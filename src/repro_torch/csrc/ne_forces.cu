@@ -18,15 +18,39 @@
 // Determinism (two launches on the same inputs give bit-identical output):
 // float atomics would sum each row in a run-dependent order, so the fields
 // are accumulated as int64 fixed point, whose sum does not depend on order.
-// Pass 1 computes every row's terms and the largest |term| of each segment
-// (atomicMax on the float's bits, itself order-independent) and writes the
-// wsums.  The segment's scale is then 2^(62 - e), where 2^e exceeds the
-// largest |term| times the number of terms, so no row total can overflow;
-// values within 2^-17 of the largest keep float32 precision.  Pass 2
-// recomputes the terms and adds them with 64-bit integer atomics into
-// (S, N, d) accumulators that stay in L2; pass 3 converts back to float32.
-// A non-finite term sets a flag that turns the whole output into NaN.
-// The price is reading the index and coefficient arrays twice.
+// The scale of segment s is 2^(62 - e), where 2^e exceeds its largest
+// |term| times its number of terms, so no row total can overflow; values
+// within 2^-17 of the largest keep float32 precision.  A non-finite term
+// sets a flag that turns the whole output into NaN.
+//
+// What holds it back on the card: the scale needs every term before any
+// is summed, so each edge is gathered twice, and the reactions are 6.7 M
+// int64 atomics at the main path's shape.  A per-row atomicMax on three
+// words, or atomics from one thread per edge and column, cost as much as
+// the rest of the work (profiler, NVIDIA H100 80GB HBM3, 700 W).
+//
+// Design, three kernels.  Pass 1 (forces_terms_kernel) computes every
+// edge once.  Its blocks are resident and stride over the rows; a warp
+// takes a row's rounds in turn, where a round is one segment on the whole
+// warp (lane i holds edges i, i + 32, ...) or two segments of at most 16
+// edges on the two half-warps, so the main path's row is two rounds (HD;
+// LD beside the negatives) and no lane idles.  A round's sums are the
+// butterfly of the whole warp, or of the half-warp (offsets 8 .. 1):
+// lanes past a 16-edge segment held exact zeros there, so both give the
+// same bits.  Pass 1 writes the wsums and each row's float aggregates, and
+// keeps each segment's largest |term| per block in shared memory (one
+// atomicMax a block and segment).  It also zeroes the accumulators.  Pass
+// 2 (forces_scatter_kernel) recomputes the edges of the segments that
+// scatter back (the same arithmetic, so the same bits) and adds each
+// reaction with 64-bit integer atomics in L2: up to d = 8 one lane a
+// column, so that a warp's atomics fall on whole rows; past that one
+// thread an edge, since each lane recomputes the whole row.  Pass 3
+// (forces_unpack_kernel) adds each row's quantised aggregate to its own
+// row's sum and converts back to float32; where qid is not the identity
+// (pass 1 flags it), pass 2 adds the aggregates with atomics instead.
+// Integer sums do not depend on order, so the output is bit for bit that
+// of the single-pass atomics design.  The launch adds one memset (the
+// per-segment maxima and two flags); the wrapper two allocations.
 //
 // Width: d = 1..4, 8, 16 and 32 (the main path's 2, the latents pipeline's
 // 8, the dry run's 32) run a compile-time width held in registers; any
@@ -57,6 +81,8 @@
 // and wsum are warp sums.  The TPU kernel's SMEM index slabs and
 // double-buffered row DMAs have no counterpart: the per-lane loads of
 // neighbour rows are served by L2, where the (N, d) embedding stays.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -77,9 +103,12 @@ struct ForceArgs {
   const float* coef;           // (B, K)
   const float* alpha;          // device scalar
   float* wsum;                 // (S, B)
-  unsigned int* max_bits;      // (S,) bits of the largest |term|
-  int* nonfinite;              // (1,)
-  unsigned long long* acc;     // (S, N, D) fixed point, zeroed
+  float* agg;                  // (S, B, D) each row's aggregate, scratch
+  unsigned int* max_bits;      // (S + 2,) bits of each segment's largest
+                               // |term|, then the non-finite flag and the
+                               // flag "qid is not the identity"; zeroed by
+                               // the launch
+  unsigned long long* acc;     // (S, N, D) fixed point, zeroed by pass 1
   float* out;                  // (S, N, D)
   int k;
   int n_seg;
@@ -215,117 +244,300 @@ __device__ __forceinline__ unsigned long long to_fixed(float v, double scale) {
       __double2ll_rn(static_cast<double>(v) * scale));
 }
 
-// kPass 1: wsums, per-segment term bound, non-finite flag.
-// kPass 2: fixed-point accumulation of the terms.
-template <int D, int kPass>
-__global__ void __launch_bounds__(kWarps * 32)
-    forces_rows_kernel(const ForceArgs a, const Width<D> wd) {
-  constexpr int kT = Width<D>::kT;
-  const int lane = threadIdx.x & 31;
-  const int64_t r =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (r >= a.b) return;  // uniform per warp
-  const float alpha = *a.alpha;
-  const int dd = wd.cols();
-  const int64_t q = repro::clamp_row(a.qid[r], a.n);
-  const float* yq_row = a.y + q * dd;
-  float yq[kT];
-  if constexpr (D > 0) load_tile(wd, 0, D, yq_row, yq);
-  bool bad = false;
+// The rounds of a row (pass 1) and the segments that scatter back (pass 2),
+// planned on the host from the segment sizes.  Round t is segment lo[t] on
+// the whole warp, or with half[t] segment lo[t] on lanes 0-15 and hi[t]
+// (-1: none) on lanes 16-31; consecutive segments of at most 16 edges share
+// a round.
+struct Plan {
+  int n_round;
+  int lo[kMaxSeg];
+  int hi[kMaxSeg];
+  int half[kMaxSeg];
+  int n_back;
+  int back[kMaxSeg];           // the segments that scatter back, in order
+  int back_first[kMaxSeg];     // each one's first edge among them
+  int k_back;                  // their edges per row
+};
+
+Plan make_plan(const ForceArgs& a) {
+  Plan p{};
   for (int s = 0; s < a.n_seg; ++s) {
-    const bool back = a.seg_back[s] != 0;
-    const int mode = a.seg_mode[s];
-    const double scale = kPass == 2 ? seg_scale(a, s) : 1.0;
-    float ws = 0.f, emax = 0.f, amax = 0.f;
-    for (int c0 = 0; c0 < dd; c0 += kT) {
-      const int w = wd.tile(c0);
-      if constexpr (D == 0) load_tile(wd, c0, w, yq_row, yq);
-      float agg[kT];
+    const int t = p.n_round;
+    if (t > 0 && p.half[t - 1] && p.hi[t - 1] < 0 && a.seg_size[s] <= 16) {
+      p.hi[t - 1] = s;
+    } else {
+      p.lo[t] = s;
+      p.hi[t] = -1;
+      p.half[t] = a.seg_size[s] <= 16;
+      ++p.n_round;
+    }
+    if (a.seg_back[s]) {
+      p.back[p.n_back] = s;
+      p.back_first[p.n_back++] = p.k_back;
+      p.k_back += a.seg_size[s];
+    }
+  }
+  return p;
+}
+
+// Sum over the warp (offsets 16 .. 1) or over each half-warp (8 .. 1).
+__device__ __forceinline__ float round_sum(float v, bool half) {
+  for (int off = half ? 8 : 16; off; off >>= 1)
+    v += __shfl_xor_sync(repro::kFullMask, v, off);
+  return v;
+}
+
+// Pass 1: each edge's terms once; per (row, segment) the wsum and the
+// float aggregate; each segment's largest |term| (over the back edges and
+// the aggregates); the non-finite and not-identity flags; acc zeroed.  The
+// blocks are resident and stride over the rows; a warp takes a row's rounds
+// in turn.
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    forces_terms_kernel(const ForceArgs a, const Plan p, const Width<D> wd) {
+  constexpr int kT = Width<D>::kT;
+  __shared__ Plan sp;
+  __shared__ unsigned s_max[kWarps][kMaxSeg];
+  __shared__ unsigned s_flags;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    sp = p;
+    s_flags = 0u;
+  }
+  if (lane < kMaxSeg) s_max[w][lane] = 0u;
+  const int dd = wd.cols();
+  const int64_t n_acc = a.n_seg * a.n * dd;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_acc; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    a.acc[i] = 0ull;
+  __syncthreads();
+
+  const float alpha = *a.alpha;
+  bool bad = false, permuted = false;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + w; r < a.b;
+       r += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const int64_t q = repro::clamp_row(a.qid[r], a.n);
+    permuted = permuted || q != r;
+    const float* yq_row = a.y + q * dd;
+    float yq[kT];
+    if constexpr (D > 0) load_tile(wd, 0, D, yq_row, yq);
+    for (int t = 0; t < sp.n_round; ++t) {
+      const bool half = sp.half[t] != 0;
+      const int s = half && lane >= 16 ? sp.hi[t] : sp.lo[t];
+      const int li = half ? lane & 15 : lane;
+      const int size = s >= 0 ? a.seg_size[s] : 0;
+      const int mode = s >= 0 ? a.seg_mode[s] : 0;
+      const bool back = s >= 0 && a.seg_back[s] != 0;
+      float ws = 0.f, emax = 0.f, amax = 0.f;
+      for (int c0 = 0; c0 < dd; c0 += kT) {
+        const int wc = wd.tile(c0);
+        if constexpr (D == 0) load_tile(wd, c0, wc, yq_row, yq);
+        float agg[kT];
 #pragma unroll
-      for (int c = 0; c < kT; ++c) agg[c] = 0.f;
-      for (int i = lane; i < a.seg_size[s]; i += 32) {
-        const int64_t j = r * a.k + a.seg_start[s] + i;
-        const int64_t t = repro::clamp_row(a.nbr[j], a.n);
-        float delta[kT];
-        const float d2 = edge_delta(wd, c0, w, yq_row, yq, a.y + t * dd,
-                                    delta);
-        float sc;
-        const float wt = edge_scalars(mode, alpha, d2, a.coef[j], sc);
+        for (int c = 0; c < kT; ++c) agg[c] = 0.f;
+        for (int i = li; i < size; i += half ? 16 : 32) {
+          const int64_t j = r * a.k + a.seg_start[s] + i;
+          const int64_t tr = repro::clamp_row(a.nbr[j], a.n);
+          float delta[kT];
+          const float d2 = edge_delta(wd, c0, wc, yq_row, yq, a.y + tr * dd,
+                                      delta);
+          float sc;
+          const float wt = edge_scalars(mode, alpha, d2, a.coef[j], sc);
 #pragma unroll
-        for (int c = 0; c < kT; ++c) {
-          if (c >= w) break;
-          const float e = edge_comp(mode, sc, delta[c]);
-          agg[c] += e;
-          if (kPass == 1) {
+          for (int c = 0; c < kT; ++c) {
+            if (c >= wc) break;
+            const float e = edge_comp(mode, sc, delta[c]);
+            agg[c] += e;
             emax = fmaxf(emax, fabsf(e));
             bad = bad || !isfinite(e);
-          } else if (back) {
-            atomicAdd(a.acc + (s * a.n + t) * dd + c0 + c,
-                      to_fixed(-e, scale));
+          }
+          if (c0 == 0) {
+            ws += wt;
+            bad = bad || !isfinite(wt);
           }
         }
-        if (c0 == 0) {
-          ws += wt;
-          if (kPass == 1) bad = bad || !isfinite(wt);
-        }
-      }
 #pragma unroll
-      for (int c = 0; c < kT; ++c) agg[c] = warp_sum(agg[c]);
-      if (kPass == 1) {
+        for (int c = 0; c < kT; ++c) agg[c] = round_sum(agg[c], half);
 #pragma unroll
         for (int c = 0; c < kT; ++c) {
-          if (c >= w) break;
+          if (c >= wc) break;
           amax = fmaxf(amax, fabsf(agg[c]));
           bad = bad || !isfinite(agg[c]);
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kT; ++c) {
-          if (c >= w) break;
-          atomicAdd(a.acc + (s * a.n + q) * dd + c0 + c,
-                    to_fixed(agg[c], scale));
+          if (li == 0 && s >= 0) a.agg[(s * a.b + r) * dd + c0 + c] = agg[c];
         }
       }
-    }
-    if (kPass == 1) {
-      ws = warp_sum(ws);
-      float m = fmaxf(back ? emax : 0.f, amax);
-      m = warp_max(m);
+      ws = round_sum(ws, half);
+      if (li == 0 && s >= 0) a.wsum[s * a.b + r] = ws;
+      // |terms| are >= 0 (fmaxf drops NaN), so their bits order as unsigned
+      const unsigned bits = __float_as_uint(fmaxf(back ? emax : 0.f, amax));
+      const unsigned m_lo =
+          __reduce_max_sync(repro::kFullMask, half && lane >= 16 ? 0u : bits);
+      const unsigned m_hi =
+          __reduce_max_sync(repro::kFullMask, half && lane >= 16 ? bits : 0u);
       if (lane == 0) {
-        a.wsum[s * a.b + r] = ws;
-        atomicMax(a.max_bits + s, __float_as_uint(m));
+        const int lo = sp.lo[t], hi = sp.hi[t];
+        s_max[w][lo] = max(s_max[w][lo], m_lo);
+        if (half && hi >= 0) s_max[w][hi] = max(s_max[w][hi], m_hi);
       }
     }
   }
-  if (kPass == 1 && __any_sync(repro::kFullMask, bad) && lane == 0)
-    atomicOr(a.nonfinite, 1);
+  const unsigned flags = (__any_sync(repro::kFullMask, bad) ? 1u : 0u) |
+                         (__any_sync(repro::kFullMask, permuted) ? 2u : 0u);
+  if (lane == 0 && flags) atomicOr(&s_flags, flags);
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < a.n_seg) {
+    unsigned m = 0u;
+    for (int v = 0; v < kWarps; ++v) m = max(m, s_max[v][threadIdx.x]);
+    if (m) atomicMax(a.max_bits + threadIdx.x, m);
+  }
+  if (threadIdx.x == 0) {
+    if (s_flags & 1u) atomicOr(a.max_bits + a.n_seg, 1u);
+    if (s_flags & 2u) atomicOr(a.max_bits + a.n_seg + 1, 1u);
+  }
 }
 
+// Pass 2: the reaction -edge of every edge of a segment that scatters back,
+// added to the neighbour's row with 64-bit integer atomics; kG lanes take
+// one edge, lane c its column c (kG = 1: one thread an edge, every
+// column), so a warp's atomics fall on whole rows.  Where qid is not the
+// identity, the threads past those edges add each (row, segment)
+// aggregate to its row.
+template <int D, int kG>
+__global__ void __launch_bounds__(256)
+    forces_scatter_kernel(const ForceArgs a, const Plan p, const Width<D> wd) {
+  constexpr int kT = Width<D>::kT;
+  __shared__ double s_scale[kMaxSeg];
+  if (static_cast<int>(threadIdx.x) < a.n_seg)
+    s_scale[threadIdx.x] = seg_scale(a, threadIdx.x);
+  __syncthreads();
+  if (a.max_bits[a.n_seg]) return;  // non-finite: the output is NaN
+  const int64_t it = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int dd = wd.cols();
+  const int64_t n_edge = a.b * p.k_back;
+  if (it >= n_edge * kG) {
+    const int64_t ia = it - n_edge * kG;
+    if (ia >= a.b * a.n_seg || !a.max_bits[a.n_seg + 1]) return;
+    const int s = static_cast<int>(ia / a.b);
+    const int64_t r = ia - s * a.b;
+    const int64_t q = repro::clamp_row(a.qid[r], a.n);
+    for (int c = 0; c < dd; ++c)
+      atomicAdd(a.acc + (s * a.n + q) * dd + c,
+                to_fixed(a.agg[(s * a.b + r) * dd + c], s_scale[s]));
+    return;
+  }
+  const int64_t e = it / kG;
+  const int cl = static_cast<int>(it - e * kG);
+  const int64_t r = e / p.k_back;
+  int i = static_cast<int>(e - r * p.k_back), s = p.back[0], i0 = 0;
+#pragma unroll
+  for (int v = 1; v < kMaxSeg; ++v) {
+    if (v < p.n_back && i >= p.back_first[v]) {
+      s = p.back[v];
+      i0 = p.back_first[v];
+    }
+  }
+  i -= i0;
+  const float alpha = *a.alpha;
+  const int mode = a.seg_mode[s];
+  const double scale = s_scale[s];
+  const int64_t q = repro::clamp_row(a.qid[r], a.n);
+  const int64_t j = r * a.k + a.seg_start[s] + i;
+  const int64_t tr = repro::clamp_row(a.nbr[j], a.n);
+  const float cf = a.coef[j];
+  const float* yq_row = a.y + q * dd;
+  unsigned long long* out = a.acc + (s * a.n + tr) * dd;
+  float yq[kT];
+  for (int c0 = 0; c0 < dd; c0 += kT) {  // one tile when D > 0
+    const int wc = wd.tile(c0);
+    load_tile(wd, c0, wc, yq_row, yq);
+    float delta[kT];
+    const float d2 = edge_delta(wd, c0, wc, yq_row, yq, a.y + tr * dd, delta);
+    float sc;
+    edge_scalars(mode, alpha, d2, cf, sc);
+    if constexpr (kG == 1) {
+#pragma unroll
+      for (int c = 0; c < kT; ++c) {
+        if (c >= wc) break;
+        atomicAdd(out + c0 + c,
+                  to_fixed(-edge_comp(mode, sc, delta[c]), scale));
+      }
+    } else {
+      float dc = 0.f;
+#pragma unroll
+      for (int c = 0; c < kT; ++c) dc = c == cl ? delta[c] : dc;
+      if (cl < wc) atomicAdd(out + cl, to_fixed(-edge_comp(mode, sc, dc), scale));
+    }
+  }
+}
+
+// Pass 3: back to float32; each row's own aggregate joins its integer sum
+// here when qid is the identity (pass 2 added it otherwise).
 __global__ void forces_unpack_kernel(const ForceArgs a, int d) {
+  __shared__ double s_scale[kMaxSeg];
+  if (static_cast<int>(threadIdx.x) < a.n_seg)
+    s_scale[threadIdx.x] = seg_scale(a, threadIdx.x);
+  __syncthreads();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n_seg * a.n * d) return;
-  if (*a.nonfinite) {
+  if (a.max_bits[a.n_seg]) {
     a.out[i] = NAN;
     return;
   }
   const int s = static_cast<int>(i / (a.n * d));
+  const int64_t row = (i - s * a.n * d) / d;
+  const double scale = s_scale[s];
+  unsigned long long v = a.acc[i];
+  if (row < a.b && !a.max_bits[a.n_seg + 1])
+    v += to_fixed(a.agg[(s * a.b + row) * d + (i - (s * a.n + row) * d)],
+                  scale);
   a.out[i] = static_cast<float>(
-      static_cast<double>(static_cast<long long>(a.acc[i])) / seg_scale(a, s));
+      static_cast<double>(static_cast<long long>(v)) / scale);
+}
+
+// Blocks of `kernel` that fill the card once (at most `want`).
+template <typename Kernel>
+unsigned resident_blocks(Kernel kernel, int threads, int64_t want) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const int64_t full = std::max<int64_t>(1, static_cast<int64_t>(sms) * per_sm);
+  return static_cast<unsigned>(std::max<int64_t>(1, std::min(want, full)));
+}
+
+// Lanes per edge in pass 2: one a column up to 8 columns (a power of two
+// >= D); past that one thread an edge, since every lane of an edge
+// recomputes the whole row's |delta|^2.
+constexpr int cols_lanes(int d) {
+  return d <= 1 ? 1 : d <= 2 ? 2 : d <= 4 ? 4 : d <= 8 ? 8 : 1;
 }
 
 template <int D>
 int launch(const ForceArgs& a, int d, cudaStream_t stream) {
+  constexpr int kG = D > 0 ? cols_lanes(D) : 1;
   const Width<D> wd{d};
-  if (a.b > 0) {
-    const unsigned rows = static_cast<unsigned>((a.b + kWarps - 1) / kWarps);
-    forces_rows_kernel<D, 1><<<rows, kWarps * 32, 0, stream>>>(a, wd);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    forces_rows_kernel<D, 2><<<rows, kWarps * 32, 0, stream>>>(a, wd);
+  const Plan p = make_plan(a);
+  cudaError_t err = cudaMemsetAsync(a.max_bits, 0,
+                                    sizeof(unsigned) * (a.n_seg + 2), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t total = a.n_seg * a.n * d;
+  const unsigned grid1 = resident_blocks(
+      forces_terms_kernel<D>, kWarps * 32,
+      std::max<int64_t>((a.b + kWarps - 1) / kWarps,
+                        (total + kWarps * 32 - 1) / (kWarps * 32)));
+  forces_terms_kernel<D><<<grid1, kWarps * 32, 0, stream>>>(a, p, wd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t threads = a.b * (p.k_back * kG + a.n_seg);
+  if (threads > 0) {
+    forces_scatter_kernel<D, kG>
+        <<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+            a, p, wd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t total = a.n_seg * a.n * d;
   if (total > 0) {
     forces_unpack_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
                            stream>>>(a, d);
@@ -440,3 +652,4 @@ extern "C" int repro_ne_forces_scatter(const ForceArgs* args, int d,
     default: return launch<0>(*args, d, stream);
   }
 }
+

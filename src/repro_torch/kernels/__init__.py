@@ -15,6 +15,8 @@ LAUNCHES = {
     "knn_merge_cand_ld": 0,
     "knn_merge_hd": 0,
     "knn_merge_ld": 0,
+    "knn_merge_cand_lanes": 0,
+    "knn_merge_lanes": 0,
     "ne_forces_scatter": 0,
     "pairwise_sqdist": 0,
     "ne_forces": 0,

@@ -1,6 +1,13 @@
 """Neighbour refinement on precomputed candidates (B4) and candidate-fused
 (B2): plain versions on the CPU, the CUDA kernels of ``csrc/knn_merge.cu``
-(one kernel body) on the card."""
+on the card.
+
+Each runs one of two routes, chosen by shape (``merge_route``): rows of at
+most ``LANE_M`` floats with K + C <= 32 (FUnc-SNE's LD refinement) take
+the lane route, one lane per element of [current list, candidates]; the
+rest (HD refinement, NND, long lists) take the warp route, one warp per
+candidate row.  Each route counts its launches under its own key
+(``knn_merge[_cand]_lanes``; the warp route by mode, ``_hd`` or ``_ld``)."""
 from __future__ import annotations
 
 import ctypes
@@ -14,6 +21,8 @@ from repro_torch.kernels.knn_merge.ref import (knn_merge_cand_ref,
 # the kernel's bounds (csrc/knn_merge.cu kMaxK, kMaxC); FUnc-SNE's
 # validate_inputs states them for a config before any launch
 MAX_K, MAX_C, _MAX_TABLES = 1024, 128, 2
+# the lane route's bounds (csrc/knn_merge.cu kLaneM; one lane per element)
+LANE_M, LANE_SLOTS = 8, 32
 _KINDS = {"uniform": 0, "one_hop": 1, "two_hop": 2, "extra": 3}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -68,7 +77,21 @@ def _merge_args(x, qid, cur_idx, cur_d, cur_valid, c):
     return a, outs
 
 
-def _launch(entry, a, x):
+def merge_route(m, k, c):
+    """The route of a merge over rows of ``m`` floats, K = ``k``, C = ``c``:
+    "lanes" when m <= LANE_M and k + c <= LANE_SLOTS, else "warp"."""
+    return "lanes" if m <= LANE_M and k + c <= LANE_SLOTS else "warp"
+
+
+def _launch(op, a, x, mode):
+    """Launch ``op`` ("knn_merge" or "knn_merge_cand") on the route its
+    shape takes and count the launch under that route's key."""
+    route = merge_route(a.m, a.k, a.c)
+    _run(f"repro_{op}" + ("_lanes" if route == "lanes" else ""), a, x)
+    LAUNCHES[f"{op}_lanes" if route == "lanes" else f"{op}_{mode}"] += 1
+
+
+def _run(entry, a, x):
     with torch.cuda.device(x.device):
         _build.call(entry, [ctypes.POINTER(_MergeArgs), _P], ctypes.byref(a),
                     _build.stream_of(x))
@@ -105,8 +128,7 @@ def knn_merge(x, qid, cur_idx, cur_d, cand, *, cand_active=None,
             "cand_active must be a contiguous (B, C) bool tensor")
     a, outs = _merge_args(x, qid, cur_idx, cur_d, cur_valid, c)
     a.cand, a.cand_valid = cand.data_ptr(), _ptr(cand_active)
-    _launch("repro_knn_merge", a, x)
-    LAUNCHES["knn_merge_ld" if cur_d is None else "knn_merge_hd"] += 1
+    _launch("knn_merge", a, x, "ld" if cur_d is None else "hd")
     return outs
 
 
@@ -189,6 +211,5 @@ def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
                                                      s.shape[0], s.shape[1])
     for g, (kind, f, s, e) in enumerate(plan):
         a.kind[g], a.tab[g], a.sec[g], a.col[g] = kind, f, s, e
-    _launch("repro_knn_merge_cand", a, x)
-    LAUNCHES["knn_merge_cand_ld" if cur_d is None else "knn_merge_cand_hd"] += 1
+    _launch("knn_merge_cand", a, x, "ld" if cur_d is None else "hd")
     return outs

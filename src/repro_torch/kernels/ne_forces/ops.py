@@ -20,8 +20,8 @@ class _ForceArgs(ctypes.Structure):
     """Field for field the ``ForceArgs`` struct of csrc/ne_forces.cu."""
     _fields_ = [
         ("y", _P), ("n", _I64), ("qid", _P), ("b", _I64), ("nbr", _P),
-        ("coef", _P), ("alpha", _P), ("wsum", _P), ("max_bits", _P),
-        ("nonfinite", _P), ("acc", _P), ("out", _P), ("k", _I),
+        ("coef", _P), ("alpha", _P), ("wsum", _P), ("agg", _P),
+        ("max_bits", _P), ("acc", _P), ("out", _P), ("k", _I),
         ("n_seg", _I), ("seg_start", _I * _MAX_SEG),
         ("seg_size", _I * _MAX_SEG), ("seg_mode", _I * _MAX_SEG),
         ("seg_back", _I * _MAX_SEG),
@@ -60,6 +60,14 @@ def _check_common(coef, alpha, b, k, d, s):
         "alpha must be a float32 scalar tensor")
 
 
+def _run(entry, a, d, like):
+    """Call the C entry ``entry`` with the argument block ``a`` and width
+    ``d`` on ``like``'s card and current stream."""
+    with torch.cuda.device(like.device):
+        _build.call(entry, [ctypes.POINTER(type(a)), _I, _P],
+                    ctypes.byref(a), d, _build.stream_of(like))
+
+
 def _launch_edges(a, segments, edges, d, like):
     k0 = 0
     for i, (mode, size) in enumerate(segments):
@@ -67,10 +75,7 @@ def _launch_edges(a, segments, edges, d, like):
         a.seg_mode[i] = _MODES[mode]
         a.edge[i] = None if edges[i] is None else edges[i].data_ptr()
         k0 += size
-    with torch.cuda.device(like.device):
-        _build.call("repro_ne_forces_edges",
-                    [ctypes.POINTER(_EdgeArgs), _I, _P], ctypes.byref(a), d,
-                    _build.stream_of(like))
+    _run("repro_ne_forces_edges", a, d, like)
 
 
 def ne_forces(y, nbr, coef, alpha, *, mode: str):
@@ -182,26 +187,25 @@ def ne_forces_scatter(x, qid, nbr_idx, coef, alpha, *, segments,
         "nbr_idx must be a contiguous (B, K) int32 tensor")
     _check_common(coef, alpha, b, k, d, s)
 
+    # two allocations: floats (the fields, the wsums, each row's aggregate)
+    # and int64 (the fixed-point fields, then S + 2 flag words)
     dev = x.device
-    wsum = torch.empty((s, b), dtype=torch.float32, device=dev)
-    max_bits = torch.zeros((s,), dtype=torch.int32, device=dev)
-    nonfinite = torch.zeros((1,), dtype=torch.int32, device=dev)
-    acc = torch.zeros((s, n, d), dtype=torch.int64, device=dev)
-    out = torch.empty((s, n, d), dtype=torch.float32, device=dev)
+    f32 = torch.empty(s * (n * d + b + b * d), dtype=torch.float32,
+                      device=dev)
+    i64 = torch.empty(s * n * d + (s + 3) // 2, dtype=torch.int64, device=dev)
+    out = f32[:s * n * d].view(s, n, d)
+    wsum = f32[s * n * d:s * (n * d + b)].view(s, b)
     a = _ForceArgs(y=x.data_ptr(), n=n, qid=qid.data_ptr(), b=b,
                    nbr=nbr_idx.data_ptr(), coef=coef.data_ptr(),
                    alpha=alpha.data_ptr(), wsum=wsum.data_ptr(),
-                   max_bits=max_bits.data_ptr(),
-                   nonfinite=nonfinite.data_ptr(), acc=acc.data_ptr(),
+                   agg=f32[s * (n * d + b):].data_ptr(),
+                   max_bits=i64[s * n * d:].data_ptr(), acc=i64.data_ptr(),
                    out=out.data_ptr(), k=k, n_seg=s)
     k0 = 0
     for i, ((mode, size), back) in enumerate(zip(segments, scatter_back)):
         a.seg_start[i], a.seg_size[i] = k0, size
         a.seg_mode[i], a.seg_back[i] = _MODES[mode], int(back)
         k0 += size
-    with torch.cuda.device(dev):
-        _build.call("repro_ne_forces_scatter",
-                    [ctypes.POINTER(_ForceArgs), _I, _P], ctypes.byref(a), d,
-                    _build.stream_of(x))
+    _run("repro_ne_forces_scatter", a, d, x)
     LAUNCHES["ne_forces_scatter"] += 1
     return tuple(out.unbind(0)), tuple(wsum.unbind(0))
