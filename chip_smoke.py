@@ -101,9 +101,17 @@ checks them:
       snapshots, the last the returned Y, and a state equal to (d)'s.
 
 B2 and B4 run the lane route where rows have at most 8 floats and K + C
-<= 32 (the LD refinement at dim_ld 2, 5, 8), the warp route elsewhere (HD,
-NND, dim_ld 32, K = 128); each route has its own launch counter, and
-every expected-launch set follows the route of its shape.
+<= 32 (the LD refinement at dim_ld 2, 5, 8), the ring route on rows of 128
+to 1,024 floats with M % 4 == 0 (HD and NND at MNIST's 784, K = 128), the
+warp route elsewhere (the latents' 16-wide HD, dim_ld 32, 783 columns);
+each route has its own launch counter, and every expected-launch set
+follows the route of its shape.  Phase (g) also runs NND a second time
+under the profiler (device busy an iteration; B4's mean launch and share
+over the run) and holds and times B4 on that run's last iteration.  B4's
+warp route is held in phase (f), on the cand_fused=False HD call at 783 of
+X's columns (quantised and real), and in phase (i), where a CHUNK-step
+chunk of cand_fused=False on the 16-wide latents drives it with the
+counters at 0 (held on the grid and on the real latents, and timed).
 
 Phase (b) also holds threefry's draws made on the card (randint at
 (70,000, 10) with spans 70,000 and 32, bernoulli, a fold_in/split chain)
@@ -541,14 +549,23 @@ def main():
         f"= {ITERS / t_run:.1f} steps/s; launches {launches}")
     def merge_key(op, m, mode, k, c):
         """The launch counter of B2 ("knn_merge_cand") or B4 ("knn_merge")
-        on rows of m floats: the lane route's, or the warp route's by
-        mode."""
-        return (f"{op}_lanes" if merge_route(m, k, c) == "lanes"
-                else f"{op}_{mode}")
+        on rows of m floats: the lane or ring route's, or the warp route's
+        by mode."""
+        route = merge_route(m, k, c)
+        return f"{op}_{mode}" if route == "warp" else f"{op}_{route}"
+
+    def c_hd_of(c_):
+        return c_.c_hd_non + c_.c_hd_ld + c_.c_hd_ld_non + c_.c_hd_rand \
+            + c_.c_hd_rev
     c_ld = cfg.c_ld_non + cfg.c_ld_hd + cfg.c_ld_rand
     ld_key = {op: merge_key(op, cfg.dim_ld, "ld", cfg.k_ld, c_ld)
               for op in ("knn_merge_cand", "knn_merge")}
-    main_kernels = {"pairwise_sqdist_gather", "knn_merge_cand_hd",
+    # the HD refinement at MNIST's width: the ring route
+    hd_key = {op: merge_key(op, DIM, "hd", cfg.k_hd, c_hd_of(cfg))
+              for op in ("knn_merge_cand", "knn_merge")}
+    check(set(hd_key.values()) == {"knn_merge_cand_ring", "knn_merge_ring"},
+          f"HD merges at {DIM} columns route to {hd_key}")
+    main_kernels = {"pairwise_sqdist_gather", hd_key["knn_merge_cand"],
                     ld_key["knn_merge_cand"], "ne_forces_scatter"}
     for name, cnt in launches.items():
         check((cnt > 0) == (name in main_kernels),
@@ -570,7 +587,9 @@ def main():
 
     def kernel_split(fn, reps=20):
         """Device ms per call of each kernel and memset that ``fn`` runs,
-        by name, from a profiler trace of ``reps`` calls."""
+        by name, from a profiler trace of ``reps`` calls, and how many
+        events the trace holds of each (a kernel of one launch a call:
+        ``reps``, unless the trace lost some)."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -578,12 +597,12 @@ def main():
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        split = {ev.key: ev.self_device_time_total / 1e3 / reps
-                 for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA
-                 and ev.self_device_time_total > 0}
-        check(split, "the profiler saw no kernel")
-        return split
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+        check(evs, "the profiler saw no kernel")
+        return ({ev.key: ev.self_device_time_total / 1e3 / reps for ev in evs},
+                {ev.key: ev.count for ev in evs})
 
     def entry(name, source, replaces, fn, plain, reps, bytes_, flops, err,
               count, library=None, tag="[e]", peak=None, graphed=False):
@@ -604,12 +623,12 @@ def main():
             + ("" if lib_ms is None else f", library {lib_ms:.3f} ms"))
         if graphed:
             g_ms = graph_ms(fn, reps)
-            split = kernel_split(fn)
+            split, events = kernel_split(fn)
             log(f"    {name}: {g_ms:.4f} ms from CUDA graphs ({b_ms / g_ms:.1%}"
                 f" of the bound); device ms per call by kernel (profiler, 20 "
-                f"calls): " + "; ".join(f"{k_[:60]} {v_:.4f}" for k_, v_ in
-                                        sorted(split.items(),
-                                               key=lambda kv: -kv[1]))
+                f"calls; events in the trace): " + "; ".join(
+                    f"{k_[:60]} {v_:.4f} ({events[k_]})" for k_, v_ in
+                    sorted(split.items(), key=lambda kv: -kv[1]))
                 + f"; sum {sum(split.values()):.4f}")
 
     # the final main-path state gives the timed inputs
@@ -660,10 +679,13 @@ def main():
     funcsne._ld_refine(cfg, st_t, base, rec.ops)
     funcsne._forces_update(cfg, st_t, hp, base, rec.ops)
     for mode in ("hd", "ld"):
-        b2_entry(f"knn_merge_cand_{mode}", rec.calls[f"knn_merge_cand_{mode}"],
+        b2_entry(hd_key["knn_merge_cand"] if mode == "hd"
+                 else f"knn_merge_cand_{mode}",
+                 rec.calls[f"knn_merge_cand_{mode}"],
                  errs[f"knn_merge_cand_{mode}"],
                  launches[ld_key["knn_merge_cand"] if mode == "ld"
-                          else "knn_merge_cand_hd"], "[e]", graphed=True)
+                          else hd_key["knn_merge_cand"]], "[e]",
+                 graphed=True)
 
     _, (y, qid, nbr, coef, alpha), kw = rec.calls["ne_forces_scatter"]
     scats, wsums = ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw)
@@ -697,7 +719,7 @@ def main():
                                                         k_ops),
         "schedule": lambda: funcsne.default_schedule(st.step, ITERS, hp),
     }
-    share = {"hd_refine": launches["knn_merge_cand_hd"] / ITERS,
+    share = {"hd_refine": launches[hd_key["knn_merge_cand"]] / ITERS,
              "sigma_refresh": 1.0 / cfg.sigma_refresh_every}
     per_step = 0.0
     for name, fn in phase.items():
@@ -735,7 +757,7 @@ def main():
     # ---- (f) the flag paths ----------------------------------------------
     # (flags, the launch counters its F_ITERS steps must move; every other
     # counter must stay at 0)
-    b2 = {"knn_merge_cand_hd", ld_key["knn_merge_cand"]}
+    b2 = {hd_key["knn_merge_cand"], ld_key["knn_merge_cand"]}
     b3 = {"ne_forces_scatter"}
     paths = {
         "default": ({}, b2 | b3),
@@ -748,7 +770,8 @@ def main():
                               {"pairwise_sqdist_gather"} | b3),
         "c_hd_rev=4": (dict(c_hd_rev=4), b2 | b3),
         "cand_fused=False": (dict(cand_fused=False),
-                             {"knn_merge_hd", ld_key["knn_merge"]} | b3),
+                             {hd_key["knn_merge"], ld_key["knn_merge"]}
+                             | b3),
         "default, again": ({}, b2 | b3),   # brackets the flag paths' times
     }
     exact_ops = {"pairwise_sqdist_gather", "knn_merge_cand", "pairwise_sqdist",
@@ -1042,12 +1065,32 @@ def main():
 
     legacy = f_rec["cand_fused=False"].calls
     for mode in ("hd", "ld"):
-        b4_entry(f"knn_merge_{mode}", legacy[f"knn_merge_{mode}"],
+        b4_entry(hd_key["knn_merge"] if mode == "hd" else f"knn_merge_{mode}",
+                 legacy[f"knn_merge_{mode}"],
                  f_err[f"knn_merge_{mode}"],
                  f_launch["cand_fused=False"][
-                     ld_key["knn_merge"] if mode == "ld" else "knn_merge_hd"],
+                     ld_key["knn_merge"] if mode == "ld"
+                     else hd_key["knn_merge"]],
                  "[f]",
                  graphed=True)
+    # B4's warp route on MNIST's rows: the same call on the first 783
+    # columns (M % 4 != 0, no ring), held on the quantised and the real X
+    _, args_w, kw_w = legacy["knn_merge_hd"]
+    err_w = {}
+    for x_w, quantised in ((Xq, True), (X, False)):
+        x_w = x_w[:, :783].contiguous()
+        kernels.reset_launches()
+        err_w[quantised] = held("knn_merge_hd M=783", "knn_merge",
+                                (x_w,) + args_w[1:], kw_w, quantised)
+        check(merge_key("knn_merge", 783, "hd", cfg.k_hd, c_hd_of(cfg))
+              == "knn_merge_hd" and kernels.LAUNCHES["knn_merge_hd"] == 1
+              and sum(kernels.LAUNCHES.values()) == 1,
+              f"B4 at 783 columns launched {kernels.LAUNCHES}")
+        del x_w
+    log(f"[f] B4's warp route (knn_merge_hd) on the cand_fused=False HD call "
+        f"at 783 columns: exact on the quantised X, max abs err "
+        f"{err_w[False]:.3e} on the real X (distances within "
+        f"{TOL_SQDIST_REL} relative)")
 
     # what the threefry draws of one cand_fused=False step cost on the card:
     # the host key chain and gate, the HD candidates (behind the gate), the
@@ -1080,7 +1123,7 @@ def main():
     draw_ms = {"key chain + gate (host)": wall_ms(chain),
                "HD candidates": wall_ms(hd_draws),
                "LD candidates + negatives": wall_ms(ld_neg_draws)}
-    gate_share = f_launch["cand_fused=False"]["knn_merge_hd"] / F_ITERS
+    gate_share = f_launch["cand_fused=False"][hd_key["knn_merge"]] / F_ITERS
     per_step = (draw_ms["key chain + gate (host)"]
                 + gate_share * draw_ms["HD candidates"]
                 + draw_ms["LD candidates + negatives"])
@@ -1128,7 +1171,7 @@ def main():
     torch.cuda.synchronize()
     t_nnd = time.perf_counter() - t0
     launches_g = dict(kernels.LAUNCHES)
-    want_g = {"pairwise_sqdist_gather": 1, "knn_merge_hd": len(hist)}
+    want_g = {"pairwise_sqdist_gather": 1, hd_key["knn_merge"]: len(hist)}
     check(launches_g == {k: want_g.get(k, 0) for k in launches_g},
           f"NND launches {launches_g}, expected {want_g}")
     check(hist[-1] < hist[0], f"NND update fraction did not fall: {hist}")
@@ -1142,8 +1185,51 @@ def main():
         f"{len(hist_s)} iterations; FUnc-SNE after {ITERS} steps: "
         f"{rec1:.4f}); update fractions "
         + " ".join(f"{h:.4f}" for h in hist))
-    b4_entry("knn_merge_nnd", recr.calls["knn_merge_hd"], g_err,
-             launches_g["knn_merge_hd"], "[g]", graphed=True)
+    b4_entry(f"{hd_key['knn_merge']}_nnd", recr.calls["knn_merge_hd"], g_err,
+             launches_g[hd_key["knn_merge"]], "[g]", graphed=True)
+    del recr
+
+    # the same run again under the profiler (device busy an iteration, B4's
+    # mean launch and share over the run), recording the last iteration's
+    # B4 call, which is then held and timed as the first one above
+    late = {}
+
+    def rec_late(*args, **kw):
+        late["call"] = ("knn_merge", args, kw)
+        return funcsne.KERNELS.knn_merge(*args, **kw)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, hist_p = nnd.nnd(X, ncfg, nkey, max_iter=NND_ITERS, tol=1e-3,
+                               device=dev,
+                               ops=funcsne.KERNELS._replace(knn_merge=rec_late))
+        torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    check(hist_p == hist and dict(kernels.LAUNCHES) == launches_g,
+          "NND under the profiler: another history or other launches")
+    ev = [(e.key, e.self_device_time_total / 1e3, e.count)
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    del prof
+    busy_g = sum(t_ for _, t_, _ in ev)
+    b4_ms = sum(t_ for k_, t_, _ in ev if "knn_merge" in k_)
+    b4_n = sum(n_ for k_, _, n_ in ev if "knn_merge" in k_)
+    check(b4_ms > 0, "the profiler saw no B4 kernel in NND")
+    n_it = len(hist_p)
+    log(f"[g] profiler over the whole run ({n_it} iterations): device busy "
+        f"{busy_g / n_it:.4f} ms an iteration against {wall_p / n_it * 1e3:.3f}"
+        f" ms of wall time with the profiler on ({t_nnd / n_it * 1e3:.3f} "
+        f"without), so the device idles about "
+        f"{1 - busy_g / n_it / (t_nnd / n_it * 1e3):.1%}; B4 "
+        f"{b4_ms / launches_g[hd_key['knn_merge']]:.4f} ms a launch on the "
+        f"run's mean ({b4_n} events in the trace), {b4_ms / busy_g:.1%} of "
+        f"the device time")
+    g_late = held("knn_merge nnd late", *late["call"], False)
+    b4_entry(f"{hd_key['knn_merge']}_nnd_late", late["call"], g_late,
+             launches_g[hd_key["knn_merge"]], "[g]", graphed=True)
+    del late
 
     # ---- (h) B8 alone ------------------------------------------------------
     def b8_rows(name, fns, reps, bytes_, flops, errs, library=None,
@@ -1500,13 +1586,55 @@ def main():
         + f" (distances within {TOL_SQDIST_REL}, forces within "
         f"{TOL_FORCE_REL} relative); one step kernels vs plain: ids/flags "
         f"exact, Y/vel/zhat within {TOL_STEP_REL}")
-    del Hp, Hq, recq, recr, st_q, st_r, st_k, st_p
+
+    # cand_fused=False on the latents: its HD merge is B4 on 16-wide rows,
+    # B4's warp route.  One step on the grid, held; a chunk of CHUNK steps
+    # from init_state with the launch counters set to 0 just before; one
+    # step from the chunk's state on the real latents, held and timed
+    c_ld_ne = cfg_ne.c_ld_non + cfg_ne.c_ld_hd + cfg_ne.c_ld_rand
+    cfg_nf = dataclasses.replace(cfg_ne, cand_fused=False)
+    key_nf = merge_key("knn_merge", cfg_ne.dim_hd, "hd", cfg_ne.k_hd,
+                       c_hd_of(cfg_ne))
+    check(key_nf == "knn_merge_hd", f"B4 at the latents' width: {key_nf}")
+    recq = Recorder(funcsne, cfg_ne.dim_ld)
+    funcsne.funcsne_step(cfg_nf, forced(st_q), Hq, hp_ne, ops=recq.ops)
+    held("knn_merge_hd latents", *recq.calls["knn_merge_hd"], True)
+    chunk_nf = funcsne.make_chunked_step(
+        cfg_nf, CHUNK, schedule=funcsne.default_schedule, n_iter=500)
+    kernels.reset_launches()
+    s_nf, _, _ = chunk_nf(st_r, Hp, hp_ne)
+    torch.cuda.synchronize()
+    launches_nf = dict(kernels.LAUNCHES)
+    want_nf = {"ne_forces_scatter", key_nf,
+               merge_key("knn_merge", cfg_ne.dim_ld, "ld", cfg_ne.k_ld,
+                         c_ld_ne)}
+    check({k_ for k_, v_ in launches_nf.items() if v_} == want_nf,
+          f"latents cand_fused=False chunk launched {launches_nf}, expected "
+          f"{sorted(want_nf)}")
+    check(bool(torch.isfinite(s_nf.Y).all()), "latents cand_fused=False: Y")
+    recr = Recorder(funcsne, cfg_ne.dim_ld)
+    funcsne.funcsne_step(cfg_nf, forced(s_nf), Hp, hp_ne, ops=recr.ops)
+    call = recr.calls["knn_merge_hd"]
+    b4_entry(f"{key_nf}_latents", call,
+             held("knn_merge_hd latents", *call, False), launches_nf[key_nf],
+             "[i]", graphed=True)
+    log(f"[i] cand_fused=False on the latents, {CHUNK} steps: launches "
+        f"{ {k_: v_ for k_, v_ in launches_nf.items() if v_} }; B4's warp "
+        f"route exact on the grid, distances within {TOL_SQDIST_REL} on the "
+        f"real latents")
+    del Hp, Hq, recq, recr, st_q, st_r, st_k, st_p, s_nf, call
 
     kernels.reset_launches()
     acc, st_l, fit_s = embed_latents.embed_and_score(H, labels, dev)
     launches_l = dict(kernels.LAUNCHES)
     moved = {k_ for k_, v_ in launches_l.items() if v_}
-    check(moved == main_kernels, f"fit launched {sorted(moved)}")
+    want_l = {"pairwise_sqdist_gather", "ne_forces_scatter",
+              merge_key("knn_merge_cand", cfg_ne.dim_hd, "hd", cfg_ne.k_hd,
+                        c_hd_of(cfg_ne)),
+              merge_key("knn_merge_cand", cfg_ne.dim_ld, "ld", cfg_ne.k_ld,
+                        c_ld_ne)}
+    check(moved == want_l, f"fit launched {sorted(moved)}, expected "
+          f"{sorted(want_l)}")
     check(bool(torch.isfinite(st_l.Y).all()), "8-D embedding not finite")
     log(f"[i] PCA 16 -> fit(dim_ld=8, n_iter=500): {500 / fit_s:.1f} steps/s "
         f"(init included); launches { {k_: v_ for k_, v_ in launches_l.items() if v_} }; "
@@ -1554,7 +1682,7 @@ def main():
         launches_w = dict(kernels.LAUNCHES)
         moved = {k_ for k_, v_ in launches_w.items() if v_}
         key_w = merge_key("knn_merge_cand", d_ld, "ld", cfg.k_ld, c_ld)
-        check(moved == {"knn_merge_cand_hd", key_w, "ne_forces_scatter"},
+        check(moved == {hd_key["knn_merge_cand"], key_w, "ne_forces_scatter"},
               f"d={d_ld} chunk launched {sorted(moved)}")
         check(bool(torch.isfinite(s_k.Y).all()), f"d={d_ld}: Y not finite")
         # the chunk's steps one at a time through the kernels (the chunk
@@ -1678,10 +1806,11 @@ def main():
                                  device=dev)
         kernels.reset_launches()
         funcsne.funcsne_step(cfg_kf, s_r, X, hp, ops=recr.ops)
-        count = kernels.LAUNCHES[f"{op}_hd"]
+        key_k = merge_key(op, DIM, "hd", cfg_k.k_hd, c_k)
+        count = kernels.LAUNCHES[key_k]
         call = recr.calls[f"{op}_hd"]
         err = held(f"{op} K=128 C={c_k}", *call, False)
-        name = f"{op}_hd_K128_C{c_k}"
+        name = f"{key_k}_K128_C{c_k}"
         (b2_entry if op == "knn_merge_cand" else b4_entry)(
             name, call, err, count, "[j]", graphed=True)
         del recq, recr, s_q, s_r, call

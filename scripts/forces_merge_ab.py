@@ -21,24 +21,23 @@ times, the card's name and power limit, whether each case's outputs are
 bit for bit the other checkout's (else the largest difference relative to
 the old output's largest entry), and one JSON line with all of it.
 Unpack the older commit with ``git archive`` into a directory that
-``.gitignore`` lists, e.g. ``build/parent``.
+``.gitignore`` lists, e.g. ``build/parent``.  The turns, the timing and
+the comparison are ``ab_common``'s.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
-import os
-import subprocess
 import sys
+
+import ab_common
 
 N, DIM, STEPS = 70_000, 784, 50
 WIDTHS = (5, 8, 32)          # phase (j)'s dim_ld beside the main path's 2
-REPS, REPEATS = 20, 3
 
 
 def _import(root):
-    sys.path.insert(0, os.path.join(root, "src"))
+    ab_common.import_root(root)
     import torch
     from repro_torch.core import funcsne, nnd, threefry
     return torch, funcsne, nnd, threefry
@@ -108,117 +107,16 @@ def prepare(root: str, path: str) -> int:
     return 0
 
 
-def graph_ms(torch, fn):
-    """ms per call of ``fn`` replayed from a CUDA graph of REPS calls,
-    REPEATS replays."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, capture_error_mode="relaxed"):
-        for _ in range(REPS):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    times = []
-    for _ in range(REPEATS):
-        t0.record()
-        g.replay()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / REPS)
-    return times
-
-
-def flat(v):
-    return [t for x in v for t in flat(x)] if isinstance(v, (tuple, list)) \
-        else [v]
-
-
-def turn(root: str, inputs: str, out: str) -> int:
-    """Run and time every case with ``root``'s kernels; save the outputs to
-    ``out``; print one JSON line {case: [ms, ...]}."""
-    torch, funcsne, _, _ = _import(root)
-    cases = torch.load(inputs, weights_only=False)
-    res, outs = {}, {}
-    for name, (op, args, kw) in sorted(cases.items()):
-        fn = getattr(funcsne.KERNELS, op)
-        outs[name] = [t.cpu() for t in flat(fn(*args, **kw))]
-        res[name] = graph_ms(torch, lambda: fn(*args, **kw))
-    torch.save(outs, out)
-    print(json.dumps(res), flush=True)
-    return 0
-
-
-def compare(torch, old, new):
-    """'bit-identical', or the largest difference relative to the old
-    output's largest finite entry (ids and flags: the share that differ)."""
-    worst = []
-    for a, b in zip(old, new):
-        if a.dtype == torch.float32:
-            if torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                continue
-            fin = torch.isfinite(a) & torch.isfinite(b)
-            scale = float(a[fin].abs().max()) if fin.any() else 1.0
-            same_inf = bool((torch.isfinite(a) == torch.isfinite(b)).all())
-            worst.append(f"float max rel {float((a - b)[fin].abs().max()) / max(scale, 1e-30):.3e}"
-                         + ("" if same_inf else ", +inf slots differ"))
-        elif not torch.equal(a, b):
-            worst.append(f"{a.dtype} {float((a != b).float().mean()):.2e} differ")
-    return "bit-identical" if not worst else "; ".join(worst)
-
-
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("old")
-    ap.add_argument("new")
-    ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--mode", choices=("prepare", "turn"),
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--inputs", help=argparse.SUPPRESS)
-    ap.add_argument("--out", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.mode == "prepare":
-        return prepare(args.old, args.inputs)
-    if args.mode == "turn":
-        return turn(args.old, args.inputs, args.out)
-    roots = {"old": os.path.abspath(args.old), "new": os.path.abspath(args.new)}
-    work = os.path.join(roots["new"], "build", "forces_merge_ab")
-    os.makedirs(work, exist_ok=True)
-    inputs = os.path.join(work, "inputs.pt")
-    me = os.path.abspath(__file__)
-    res = subprocess.run([sys.executable, me, roots["old"], roots["old"],
-                          "--mode", "prepare", "--inputs", inputs],
-                         cwd=roots["old"], stdout=subprocess.PIPE, text=True,
-                         check=True)
-    print(f"inputs: {res.stdout.strip().splitlines()[-1]}", flush=True)
-    turns, saved = [], {}
-    for rnd in range(args.rounds):
-        for i, label in enumerate(("old", "new", "new", "old")):
-            out = os.path.join(work, f"{label}_{rnd}_{i}.pt")
-            res = subprocess.run([sys.executable, me, roots[label],
-                                  roots[label], "--mode", "turn", "--inputs",
-                                  inputs, "--out", out], cwd=roots[label],
-                                 stdout=subprocess.PIPE, text=True, check=True)
-            times = json.loads(res.stdout.strip().splitlines()[-1])
-            saved.setdefault(label, out)
-            turns.append({"tree": label, "ms": times})
-            print(f"{label}: " + "; ".join(
-                f"{k} " + " / ".join(f"{t:.4f}" for t in v)
-                for k, v in times.items()) + " ms", flush=True)
-    import torch
-    old, new = (torch.load(saved[t], weights_only=False) for t in ("old", "new"))
-    same = {name: compare(torch, old[name], new[name]) for name in old}
+    roots, prepared, turns, same = ab_common.run(__file__, __doc__, prepare,
+                                                 "forces_merge_ab")
+    print(f"inputs: {prepared}", flush=True)
     for name, verdict in same.items():
-        best = {t: min(min(x["ms"][name]) for x in turns if x["tree"] == t)
-                for t in ("old", "new")}
+        best = ab_common.best(turns, name)
         print(f"{name}: new against old {verdict}; best ms old "
               f"{best['old']:.4f}, new {best['new']:.4f} "
               f"({best['new'] / best['old']:.3f}x)", flush=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = ab_common.card()
     print(card, flush=True)
     print(json.dumps({"roots": roots, "card": card, "outputs": same,
                       "turns": turns}), flush=True)

@@ -1,5 +1,6 @@
 // Hopper building blocks of B8's two tensor-core kernels
-// (flash_attention_wgmma.cu for bf16, flash_attention_tf32.cu for float32):
+// (flash_attention_wgmma.cu for bf16, flash_attention_tf32.cu for float32)
+// and of B2/B4's ring route (knn_merge.cu: mbarriers, 1-D bulk copies):
 // PTX wrappers for mbarriers, TMA loads and the wgmma fences, the
 // shared-memory descriptor of a 128-byte-swizzled tile, and the host's
 // tensor map of a (B, H, S, D) view.
@@ -66,6 +67,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, by the TMA's 1-D bulk copy; completes its bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

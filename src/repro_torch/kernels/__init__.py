@@ -17,6 +17,8 @@ LAUNCHES = {
     "knn_merge_ld": 0,
     "knn_merge_cand_lanes": 0,
     "knn_merge_lanes": 0,
+    "knn_merge_cand_ring": 0,
+    "knn_merge_ring": 0,
     "ne_forces_scatter": 0,
     "pairwise_sqdist": 0,
     "ne_forces": 0,

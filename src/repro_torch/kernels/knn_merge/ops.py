@@ -2,12 +2,21 @@
 (B2): plain versions on the CPU, the CUDA kernels of ``csrc/knn_merge.cu``
 on the card.
 
-Each runs one of two routes, chosen by shape (``merge_route``): rows of at
-most ``LANE_M`` floats with K + C <= 32 (FUnc-SNE's LD refinement) take
-the lane route, one lane per element of [current list, candidates]; the
-rest (HD refinement, NND, long lists) take the warp route, one warp per
-candidate row.  Each route counts its launches under its own key
-(``knn_merge[_cand]_lanes``; the warp route by mode, ``_hd`` or ``_ld``)."""
+Each runs one of three routes, chosen by shape (``merge_route``):
+
+- lanes: rows of at most ``LANE_M`` floats with K + C <= 32 (FUnc-SNE's LD
+  refinement), one lane per element of [current list, candidates];
+- ring: rows of ``RING_MIN_M`` to ``RING_MAX_M`` floats with M % 4 == 0 on
+  a 16-byte-aligned x (HD refinement and NND on MNIST's 784), one warp per
+  query row with a ring of whole candidate rows in shared memory, filled by
+  1-D bulk copies (the kernel's launcher sizes it; it fits at every K and C
+  the kernels take);
+- warp: the rest (other widths, long lists on narrow rows), one warp per
+  query row scoring its candidate rows in turn.
+
+Each route counts its launches under its own key (``knn_merge[_cand]_lanes``,
+``knn_merge[_cand]_ring``; the warp route by mode, ``_hd`` or ``_ld``).  The
+routes' distances, ids and flags agree bit for bit."""
 from __future__ import annotations
 
 import ctypes
@@ -23,6 +32,9 @@ from repro_torch.kernels.knn_merge.ref import (knn_merge_cand_ref,
 MAX_K, MAX_C, _MAX_TABLES = 1024, 128, 2
 # the lane route's bounds (csrc/knn_merge.cu kLaneM; one lane per element)
 LANE_M, LANE_SLOTS = 8, 32
+# the ring route's widths (kRingMinM: a float4 of each row for every lane;
+# kRingMaxM: the query row's float4s a lane holds in registers)
+RING_MIN_M, RING_MAX_M = 128, 1024
 _KINDS = {"uniform": 0, "one_hop": 1, "two_hop": 2, "extra": 3}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -77,18 +89,25 @@ def _merge_args(x, qid, cur_idx, cur_d, cur_valid, c):
     return a, outs
 
 
-def merge_route(m, k, c):
-    """The route of a merge over rows of ``m`` floats, K = ``k``, C = ``c``:
-    "lanes" when m <= LANE_M and k + c <= LANE_SLOTS, else "warp"."""
-    return "lanes" if m <= LANE_M and k + c <= LANE_SLOTS else "warp"
+def merge_route(m, k, c, aligned=True):
+    """The route of a merge over rows of ``m`` floats, K = ``k``, C = ``c``
+    (``aligned``: x starts on 16 bytes): "lanes" when m <= LANE_M and
+    k + c <= LANE_SLOTS; "ring" when ``aligned``, m % 4 == 0 and
+    RING_MIN_M <= m <= RING_MAX_M; else "warp"."""
+    if m <= LANE_M and k + c <= LANE_SLOTS:
+        return "lanes"
+    if aligned and m % 4 == 0 and RING_MIN_M <= m <= RING_MAX_M:
+        return "ring"
+    return "warp"
 
 
 def _launch(op, a, x, mode):
     """Launch ``op`` ("knn_merge" or "knn_merge_cand") on the route its
-    shape takes and count the launch under that route's key."""
-    route = merge_route(a.m, a.k, a.c)
-    _run(f"repro_{op}" + ("_lanes" if route == "lanes" else ""), a, x)
-    LAUNCHES[f"{op}_lanes" if route == "lanes" else f"{op}_{mode}"] += 1
+    shape takes and count the launch under that route's key (the warp
+    route's by mode)."""
+    route = merge_route(a.m, a.k, a.c, x.data_ptr() % 16 == 0)
+    _run(f"repro_{op}" + ("" if route == "warp" else f"_{route}"), a, x)
+    LAUNCHES[f"{op}_{mode}" if route == "warp" else f"{op}_{route}"] += 1
 
 
 def _run(entry, a, x):

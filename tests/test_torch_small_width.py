@@ -1,10 +1,12 @@
 """The wrappers of B2/B4 (neighbour refinement) and B3 (scatter-fused
 forces) on the card's side, with the C call stubbed on meta tensors.
 
-B2 and B4 run one of two routes, chosen by shape (``merge_route``): the
+B2 and B4 run one of three routes, chosen by shape (``merge_route``): the
 lane route for rows of at most ``LANE_M`` floats with K + C <= 32
-(FUnc-SNE's LD refinement), the warp route otherwise (HD refinement, NND,
-long lists); each counts its launches under its own key.  B3's wrapper
+(FUnc-SNE's LD refinement), the ring route for rows of 128 to 1,024 floats
+with M % 4 == 0 (HD refinement and NND at MNIST's 784;
+``tests/test_torch_merge_ring.py`` holds its block's size), the warp route
+otherwise; each counts its launches under its own key.  B3's wrapper
 passes its argument block (the segments, two allocations laid out as the
 kernel reads them) and raises on what the kernel does not take, before any
 launch.  The kernels themselves are held to their plain versions on the
@@ -22,7 +24,8 @@ from repro_torch.kernels.ne_forces import ops as force_ops
 from repro_torch.kernels.ne_forces.ops import ne_forces_scatter
 
 MERGE_KEYS = ("knn_merge_cand_hd", "knn_merge_cand_ld", "knn_merge_hd",
-              "knn_merge_ld", "knn_merge_cand_lanes", "knn_merge_lanes")
+              "knn_merge_ld", "knn_merge_cand_lanes", "knn_merge_lanes",
+              "knn_merge_cand_ring", "knn_merge_ring")
 
 
 def meta(shape, dtype=torch.float32):
@@ -32,8 +35,8 @@ def meta(shape, dtype=torch.float32):
 @pytest.fixture
 def launched(monkeypatch):
     """Stub the C calls of B2/B4 and B3 on meta tensors: record each
-    launch's entry and argument block, with the device check answering
-    'cuda'."""
+    launch's entry and argument block (and B3's width d), with the device
+    check answering 'cuda'."""
     calls = []
 
     def record(entry, a, *rest):
@@ -48,17 +51,26 @@ def launched(monkeypatch):
 
 @pytest.mark.parametrize("m,k,c,route", [
     (2, 16, 8, "lanes"), (5, 16, 8, "lanes"), (8, 16, 8, "lanes"),
-    (2, 16, 16, "lanes"), (2, 31, 1, "lanes"), (784, 32, 10, "warp"),
+    (2, 16, 16, "lanes"), (2, 31, 1, "lanes"), (784, 32, 10, "ring"),
     (2, 128, 64, "warp"), (9, 16, 8, "warp"), (32, 16, 8, "warp"),
-    (2, 16, 17, "warp"), (16, 32, 10, "warp")])
+    (2, 16, 17, "warp"), (16, 32, 10, "warp"),
+    # the ring: HD (C 10, 14 with reverse edges) and NND at 784, K 128 C 64,
+    # the bounds, the widths' edges
+    (784, 32, 14, "ring"), (784, 32, 16, "ring"), (784, 128, 64, "ring"),
+    (784, 1024, 128, "ring"), (128, 32, 10, "ring"), (1024, 32, 10, "ring"),
+    # the warp route: M % 4 != 0, below or past the ring's widths
+    (783, 32, 10, "warp"), (30, 16, 8, "warp"), (124, 32, 10, "warp"),
+    (1028, 32, 10, "warp"), (2048, 32, 10, "warp")])
 def test_merge_route_by_shape(m, k, c, route):
     assert merge_ops.merge_route(m, k, c) == route
 
 
 @pytest.mark.parametrize("m,k,c,mode,route", [
-    (2, 16, 8, "ld", "lanes"), (784, 32, 10, "hd", "warp"),
+    (2, 16, 8, "ld", "lanes"), (784, 32, 10, "hd", "ring"),
     (2, 128, 64, "ld", "warp"), (2, 128, 64, "hd", "warp"),
-    (8, 16, 8, "hd", "lanes"), (32, 16, 8, "ld", "warp")])
+    (8, 16, 8, "hd", "lanes"), (32, 16, 8, "ld", "warp"),
+    (784, 128, 64, "hd", "ring"), (784, 32, 10, "ld", "ring"),
+    (783, 32, 10, "hd", "warp"), (1024, 1024, 128, "hd", "ring")])
 def test_knn_merge_cand_launches_its_route(launched, m, k, c, mode, route):
     """B2 on the card: the entry of the route its shape takes, the launch
     counted under that route's key (the warp route's by mode), nothing
@@ -75,19 +87,21 @@ def test_knn_merge_cand_launches_its_route(launched, m, k, c, mode, route):
                          active=meta((n,), torch.bool), cur_valid=cur_valid)
     assert [t.shape for t in out] == [(b, k), (b, k), (b,)]
     (entry, a, _), = launched
-    lanes = route == "lanes"
-    assert entry == "repro_knn_merge_cand" + ("_lanes" if lanes else "")
+    warp = route == "warp"
+    assert entry == "repro_knn_merge_cand" + ("" if warp else f"_{route}")
     assert (a["m"], a["k"], a["c"], a["b"], a["n"]) == (m, k, c, b, n)
     assert list(a["kind"][:c]) == [2] * (c - 4) + [1] * 2 + [0] * 2
-    key = "knn_merge_cand_lanes" if lanes else f"knn_merge_cand_{mode}"
+    key = f"knn_merge_cand_{mode if warp else route}"
     assert {kk: kernels.LAUNCHES[kk] for kk in MERGE_KEYS} == {
         kk: int(kk == key) for kk in MERGE_KEYS}
 
 
 @pytest.mark.parametrize("m,k,c,mode,route", [
-    (2, 16, 8, "ld", "lanes"), (784, 32, 16, "hd", "warp"),
-    (784, 32, 10, "hd", "warp"), (2, 128, 64, "hd", "warp"),
-    (5, 16, 8, "ld", "lanes")])
+    (2, 16, 8, "ld", "lanes"), (784, 32, 16, "hd", "ring"),
+    (784, 32, 10, "hd", "ring"), (2, 128, 64, "hd", "warp"),
+    (5, 16, 8, "ld", "lanes"), (784, 32, 14, "hd", "ring"),
+    (784, 128, 64, "hd", "ring"), (30, 32, 16, "hd", "warp"),
+    (784, 32, 14, "ld", "ring"), (128, 32, 16, "hd", "ring")])
 def test_knn_merge_launches_its_route(launched, m, k, c, mode, route):
     """B4 on the card: as B2, with the candidates and their validity from
     the (B, C) blocks."""
@@ -100,10 +114,10 @@ def test_knn_merge_launches_its_route(launched, m, k, c, mode, route):
                     cand_active=meta((b, c), torch.bool), cur_valid=cur_valid)
     assert [t.shape for t in out] == [(b, k), (b, k), (b,)]
     (entry, a, _), = launched
-    lanes = route == "lanes"
-    assert entry == "repro_knn_merge" + ("_lanes" if lanes else "")
+    warp = route == "warp"
+    assert entry == "repro_knn_merge" + ("" if warp else f"_{route}")
     assert (a["m"], a["k"], a["c"]) == (m, k, c)
-    key = "knn_merge_lanes" if lanes else f"knn_merge_{mode}"
+    key = f"knn_merge_{mode if warp else route}"
     assert {kk: kernels.LAUNCHES[kk] for kk in MERGE_KEYS} == {
         kk: int(kk == key) for kk in MERGE_KEYS}
 
