@@ -100,18 +100,29 @@ checks them:
       state bit-identical; C2, ``fit(snapshot_every=100)`` returns 5
       snapshots, the last the returned Y, and a state equal to (d)'s.
 
-B2 and B4 run the lane route where rows have at most 8 floats and K + C
-<= 32 (the LD refinement at dim_ld 2, 5, 8), the ring route on rows of 128
-to 1,024 floats with M % 4 == 0 (HD and NND at MNIST's 784, K = 128), the
-warp route elsewhere (the latents' 16-wide HD, dim_ld 32, 783 columns);
+B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
+2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
+(MNIST's 784), the warp route elsewhere (16, dim_ld 32, 783 columns, a
+misaligned x); phase (b) holds each route against the plain version (lanes
+at d = 2 with C 16 and 24, ring at 784 with C 32 and 10, warp at 783 and
+16), and phases (e), (f), (g), (i) and (j) time it at every shape a path
+gives it (init_state's HD and LD lists, merge_fused=False's HD and LD
+calls, NND's start, the latents fit's start, merge_fused=False's LD call at
+dim_ld 5, 8, 32, and 783 columns and a misaligned X on the warp route),
+each row with its rows scored, GB gathered and rate from CUDA graphs; phase
+(f) also profiles 20 steps of merge_fused=False (device busy a step, B1's
+share). B2 and B4 run the lane route where rows have at most 8 floats and
+K + C <= 32 (the LD refinement at dim_ld 2, 5, 8), the ring route on rows
+of 128 to 1,024 floats with M % 4 == 0 (HD and NND at MNIST's 784, K = 128),
+the warp route elsewhere (the latents' 16-wide HD, dim_ld 32, 783 columns);
 each route has its own launch counter, and every expected-launch set
-follows the route of its shape.  Phase (g) also runs NND a second time
-under the profiler (device busy an iteration; B4's mean launch and share
-over the run) and holds and times B4 on that run's last iteration.  B4's
-warp route is held in phase (f), on the cand_fused=False HD call at 783 of
-X's columns (quantised and real), and in phase (i), where a CHUNK-step
-chunk of cand_fused=False on the 16-wide latents drives it with the
-counters at 0 (held on the grid and on the real latents, and timed).
+follows the route of its shape. Phase (g) also runs NND a second time under
+the profiler (device busy an iteration; B4's mean launch and share over the
+run) and holds and times B4 on that run's last iteration. B4's warp route
+is held in phase (f), on the cand_fused=False HD call at 783 of X's columns
+(quantised and real), and in phase (i), where a CHUNK-step chunk of
+cand_fused=False on the 16-wide latents drives it with the counters at 0
+(held on the grid and on the real latents, and timed).
 
 Phase (b) also holds threefry's draws made on the card (randint at
 (70,000, 10) with spans 70,000 and 32, bernoulli, a fold_in/split chain)
@@ -368,7 +379,7 @@ def main():
                                                    ne_forces_ref,
                                                    ne_forces_scatter_ref)
     from repro_torch.kernels.pairwise_sqdist.ops import (
-        pairwise_sqdist, pairwise_sqdist_gather)
+        gather_route, pairwise_sqdist, pairwise_sqdist_gather)
     from repro_torch.kernels.pairwise_sqdist.ref import (
         pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
     from repro_torch.kernels.segment_sum import ops as seg_ops
@@ -392,6 +403,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
+
+    def gather_key(m, aligned=True):
+        """The launch counter of B1 on rows of m floats: the lane or ring
+        route's, or the warp route's."""
+        route = gather_route(m, aligned)
+        return "pairwise_sqdist_gather" + ("" if route == "warp"
+                                           else f"_{route}")
     t_start = time.perf_counter()
 
     # ---- (a) build and device ------------------------------------------
@@ -418,6 +436,7 @@ def main():
     # main-path inputs (the gate always fires at step 0: E[N_new/N] = 1)
     rec = Recorder(funcsne)
     stq = funcsne.init_state(Xq, cfg, seed=1, device=dev, ops=rec.ops)
+    y_real = stq.Y
     stq = stq._replace(Y=torch.round(stq.Y * 400.0) / 4.0)  # quarter grid
     funcsne.funcsne_step(cfg, stq, Xq, hp, ops=rec.ops)
     check(set(rec.calls) == {"pairwise_sqdist_gather_hd",
@@ -426,23 +445,43 @@ def main():
                              "ne_forces_scatter"}, f"calls {set(rec.calls)}")
     errs = {}
 
-    for mode in ("hd", "ld"):
-        _, (x, qid, cand), _ = rec.calls[f"pairwise_sqdist_gather_{mode}"]
-        x = Xq if mode == "hd" else stq.Y          # both on integer grids
-        got = pairwise_sqdist_gather(x, qid, cand)
-        want = pairwise_sqdist_gather_ref(x, qid, cand)
-        check(torch.equal(got, want), f"B1 {mode} not exact on quantised x")
-        log(f"[b] B1 pairwise_sqdist_gather {mode}: x {tuple(x.shape)} "
-            f"cand {tuple(cand.shape)}: exact on quantised inputs")
-    _, (x, qid, cand), _ = rec.calls["pairwise_sqdist_gather_hd"]
-    got = pairwise_sqdist_gather(X, qid, cand)
-    want = pairwise_sqdist_gather_ref(X, qid, cand)
-    rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
-    check(rel <= TOL_SQDIST_REL, f"B1 real-X relative error {rel}")
-    errs["pairwise_sqdist_gather"] = max_err(got, want)
-    log(f"    B1 on the real X: max abs err {errs['pairwise_sqdist_gather']:.3e}, "
-        f"max rel {rel:.3e} (tol {TOL_SQDIST_REL})")
-    del got, want
+    # B1 on each of its routes: lanes at d = 2 (init_state's C 16, and C 24
+    # as merge_fused=False's LD call scores the list and the candidates),
+    # ring at 784 (init_state's C 32, merge_fused=False's HD C 10), warp at
+    # 783 and 16 columns; exact on the integer grids, within TOL_SQDIST_REL
+    # on the real X and Y
+    _, (_, qid, cand_hd), _ = rec.calls["pairwise_sqdist_gather_hd"]
+    _, (_, _, cand_ld), _ = rec.calls["pairwise_sqdist_gather_ld"]
+    cand_24 = torch.cat([cand_ld, cand_hd[:, :8]], dim=1).contiguous()
+    cand_10 = cand_hd[:, :10].contiguous()
+    for route, xq_, xr_, cand_ in (
+            ("lanes", stq.Y, y_real, cand_ld),
+            ("lanes", stq.Y, y_real, cand_24),
+            ("ring", Xq, X, cand_hd), ("ring", Xq, X, cand_10),
+            ("warp", Xq[:, :783].contiguous(), X[:, :783].contiguous(),
+             cand_hd),
+            ("warp", Xq[:, :16].contiguous(), X[:, :16].contiguous(),
+             cand_hd)):
+        key = gather_key(xq_.shape[1])
+        label = f"B1 {route} M={xq_.shape[1]} C={cand_.shape[1]}"
+        check(gather_route(xq_.shape[1]) == route, f"{label}: route {key}")
+        kernels.reset_launches()
+        got = pairwise_sqdist_gather(xq_, qid, cand_)
+        check(kernels.LAUNCHES[key] == 1
+              and sum(kernels.LAUNCHES.values()) == 1,
+              f"{label}: launches {kernels.LAUNCHES}")
+        check(torch.equal(got, pairwise_sqdist_gather_ref(xq_, qid, cand_)),
+              f"{label} not exact on quantised inputs")
+        got = pairwise_sqdist_gather(xr_, qid, cand_)
+        want = pairwise_sqdist_gather_ref(xr_, qid, cand_)
+        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        check(rel <= TOL_SQDIST_REL, f"{label}: real-input relative error "
+              f"{rel}")
+        log(f"[b] {label} ({key}): exact on quantised inputs; on the real "
+            f"{'Y' if xq_ is stq.Y else 'X'} max abs err "
+            f"{max_err(got, want):.3e}, max rel {rel:.3e} "
+            f"(tol {TOL_SQDIST_REL})")
+    del got, want, cand_24, cand_10, y_real
 
     for mode in ("hd", "ld"):
         _, args, kw = rec.calls[f"knn_merge_cand_{mode}"]
@@ -565,11 +604,19 @@ def main():
               for op in ("knn_merge_cand", "knn_merge")}
     check(set(hd_key.values()) == {"knn_merge_cand_ring", "knn_merge_ring"},
           f"HD merges at {DIM} columns route to {hd_key}")
-    main_kernels = {"pairwise_sqdist_gather", hd_key["knn_merge_cand"],
+    # init_state's B1 calls: the ring at MNIST's width, the lanes at d = 2
+    b1_key = {"hd": gather_key(DIM), "ld": gather_key(cfg.dim_ld)}
+    check(b1_key == {"hd": "pairwise_sqdist_gather_ring",
+                     "ld": "pairwise_sqdist_gather_lanes"},
+          f"B1 at {DIM} and {cfg.dim_ld} columns routes to {b1_key}")
+    main_kernels = {*b1_key.values(), hd_key["knn_merge_cand"],
                     ld_key["knn_merge_cand"], "ne_forces_scatter"}
     for name, cnt in launches.items():
         check((cnt > 0) == (name in main_kernels),
               f"kernel {name}: {cnt} launches on the main path")
+    check(all(launches[k_] == 1 for k_ in b1_key.values()),
+          f"B1 launched {[launches[k_] for k_ in b1_key.values()]} times, "
+          "once a call of init_state expected")
     check(bool(torch.isfinite(st.Y).all()), "Y not finite")
     rec1 = recall(st.hd_idx)
     sub = torch.randperm(N, generator=torch.Generator().manual_seed(2))[
@@ -621,6 +668,7 @@ def main():
         log(f"{tag} {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain_ms:.3f} ms"
             + ("" if lib_ms is None else f", library {lib_ms:.3f} ms"))
+        g_ms = None
         if graphed:
             g_ms = graph_ms(fn, reps)
             split, events = kernel_split(fn)
@@ -630,19 +678,42 @@ def main():
                     f"{k_[:60]} {v_:.4f} ({events[k_]})" for k_, v_ in
                     sorted(split.items(), key=lambda kv: -kv[1]))
                 + f"; sum {sum(split.values()):.4f}")
+        return g_ms
 
-    # the final main-path state gives the timed inputs
+    def b1_entry(case, x, qid, cand, count, tag):
+        """B1's row at one of the shapes its paths give it, on the real
+        inputs: held against the plain version (TOL_SQDIST_REL), timed
+        beside its bound (x, the ids and the output moved once; 3 flops a
+        column of every slot, all of which it scores), from CUDA graphs
+        too; the rows it scores, the bytes it gathers ((1 + C) rows of M
+        floats a query, the ids and the output) and their rate from CUDA
+        graphs.  ``count``: its launches over the path that runs it."""
+        key = gather_key(x.shape[1], x.data_ptr() % 16 == 0)
+        got = pairwise_sqdist_gather(x, qid, cand)
+        want = pairwise_sqdist_gather_ref(x, qid, cand)
+        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        check(rel <= TOL_SQDIST_REL, f"B1 {case}: relative error {rel}")
+        (b, c), m = cand.shape, x.shape[1]
+        g_ms = entry(f"{key}_{case}", "src/repro_torch/csrc/pairwise_sqdist.cu",
+                     "src/repro/kernels/pairwise_sqdist/kernel.py:278",
+                     lambda: pairwise_sqdist_gather(x, qid, cand),
+                     lambda: pairwise_sqdist_gather_ref(x, qid, cand), 20,
+                     nbytes(x, qid, cand, got), 3.0 * b * c * m,
+                     max_err(got, want), count, tag=tag, graphed=True)
+        gb = (b * (1 + c) * m * 4 + nbytes(qid, cand, got)) / 1e9
+        log(f"    {key}_{case}: x {tuple(x.shape)}"
+            + ("" if x.data_ptr() % 16 == 0 else " (not on 16 bytes)")
+            + f" C={c}, {b * c} rows scored, {gb:.4f} GB gathered, "
+            f"{gb / g_ms:.2f} TB/s from CUDA graphs; max rel err {rel:.3e}")
+
+    # the final main-path state gives the timed inputs; B1 at init_state's
+    # shapes: random lists of k_hd on X and of k_ld on Y
     ids = torch.arange(N, dtype=torch.int32, device=dev)
     cand = knn.init_knn_idx(threefry.prng_key(3), N, N, cfg.k_hd, device=dev)
-    out_b = torch.empty((N, cfg.k_hd), device=dev)
-    entry("pairwise_sqdist_gather", "src/repro_torch/csrc/pairwise_sqdist.cu",
-          "src/repro/kernels/pairwise_sqdist/kernel.py:278",
-          lambda: pairwise_sqdist_gather(X, ids, cand),
-          lambda: pairwise_sqdist_gather_ref(X, ids, cand), 10,
-          nbytes(X, ids, cand, out_b), 3.0 * N * cfg.k_hd * DIM,
-          errs["pairwise_sqdist_gather"],
-          launches["pairwise_sqdist_gather"], graphed=True)
-    del out_b
+    b1_entry("init_hd", X, ids, cand, launches[b1_key["hd"]], "[e]")
+    cand = knn.init_knn_idx(threefry.prng_key(4), N, N, cfg.k_ld, device=dev)
+    b1_entry("init_ld", st.Y, ids, cand, launches[b1_key["ld"]], "[e]")
+    del cand
 
     def b2_entry(name, call, err, count, tag, graphed=False):
         """B2's time beside its bound: every input read once, every output
@@ -767,7 +838,7 @@ def main():
         "scatter_fused=False": (dict(scatter_fused=False),
                                 b2 | {"ne_forces_gather", "segment_sum"}),
         "merge_fused=False": (dict(merge_fused=False),
-                              {"pairwise_sqdist_gather"} | b3),
+                              set(b1_key.values()) | b3),
         "c_hd_rev=4": (dict(c_hd_rev=4), b2 | b3),
         "cand_fused=False": (dict(cand_fused=False),
                              {hd_key["knn_merge"], ld_key["knn_merge"]}
@@ -927,6 +998,60 @@ def main():
         log(f"[f] B6 at C = {c_cols}: exact on quantised X, relative error "
             f"within {TOL_SQDIST_REL} on the real X")
     del ids, cand
+
+    # B1 on merge_fused=False's path: its HD call behind the gate (the
+    # ring) and its LD call of list and candidates (the lanes), on the real
+    # final state; then the HD call on 783 of X's columns and on a copy of
+    # X that starts 4 bytes past 16 (the warp route; no path runs them)
+    unf = f_rec["merge_fused=False"].calls
+    for mode in ("hd", "ld"):
+        _, (x_u, qid_u, cand_u), _ = unf[f"pairwise_sqdist_gather_{mode}"]
+        b1_entry(f"merge_fused_false_{mode}", x_u, qid_u, cand_u,
+                 f_launch["merge_fused=False"][b1_key[mode]], "[f]")
+    _, (_, qid_u, cand_u), _ = unf["pairwise_sqdist_gather_hd"]
+    b1_entry("m783", X[:, :783].contiguous(), qid_u, cand_u, 0, "[f]")
+    x_mis = torch.empty(N * DIM + 1, device=dev)[1:].view(N, DIM)
+    x_mis.copy_(X)
+    check(gather_key(DIM, x_mis.data_ptr() % 16 == 0)
+          == "pairwise_sqdist_gather", "B1 on a misaligned X: not the warp "
+          "route")
+    b1_entry("misaligned", x_mis, qid_u, cand_u, 0, "[f]")
+    del x_mis, x_u, qid_u, cand_u, unf
+
+    # where a merge_fused=False step's device time goes: a 20-step profiler
+    # window from the main path's final state, B1's share by kernel name
+    cfg_mf = dataclasses.replace(cfg, merge_fused=False)
+    win_mf = funcsne.make_chunked_step(
+        cfg_mf, 20, schedule=funcsne.default_schedule, n_iter=ITERS + F_ITERS)
+    win_mf(st, X, hp)                      # warm-up, untimed
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        win_mf(st, X, hp)
+        torch.cuda.synchronize()
+    rows_mf = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    del prof
+    busy_mf = sum(r[1] for r in rows_mf)
+    b1_mf = [r for r in rows_mf if "sqdist_gather" in r[0]]
+    b1_ms = sum(r[1] for r in b1_mf)
+    check(b1_ms > 0, "the profiler saw no B1 kernel in merge_fused=False")
+    log(f"[f] profiler, 20 steps of merge_fused=False: device busy "
+        f"{busy_mf / 20:.4f} ms/step, B1 {b1_ms / 20:.4f} ms/step "
+        f"({b1_ms / busy_mf:.1%}; launches "
+        f"{ {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_} }; "
+        + ", ".join(f"{k_[:40]} {t_:.4f} ms in {n_} events"
+                    for k_, t_, n_ in b1_mf)
+        + f"); the path ran {1e3 / f_sps['merge_fused=False']:.3f} ms/step "
+        f"of wall time in its {F_ITERS} steps, so the device idles about "
+        f"{1 - busy_mf / 20 / (1e3 / f_sps['merge_fused=False']):.1%}; "
+        "device time by kernel:")
+    for key, ms, cnt in sorted(rows_mf, key=lambda r: -r[1])[:8]:
+        log(f"    {ms:9.3f} ms  {cnt:5d}x  {key[:90]}")
+    del rows_mf, b1_mf
 
     # B5-B7 at the flag paths' shapes, on the real final state
     _, (q, c), _ = f_rec["gather_fused=False"].calls["pairwise_sqdist"]
@@ -1171,7 +1296,7 @@ def main():
     torch.cuda.synchronize()
     t_nnd = time.perf_counter() - t0
     launches_g = dict(kernels.LAUNCHES)
-    want_g = {"pairwise_sqdist_gather": 1, hd_key["knn_merge"]: len(hist)}
+    want_g = {b1_key["hd"]: 1, hd_key["knn_merge"]: len(hist)}
     check(launches_g == {k: want_g.get(k, 0) for k in launches_g},
           f"NND launches {launches_g}, expected {want_g}")
     check(hist[-1] < hist[0], f"NND update fraction did not fall: {hist}")
@@ -1187,6 +1312,8 @@ def main():
         + " ".join(f"{h:.4f}" for h in hist))
     b4_entry(f"{hd_key['knn_merge']}_nnd", recr.calls["knn_merge_hd"], g_err,
              launches_g[hd_key["knn_merge"]], "[g]", graphed=True)
+    b1_entry("nnd_init", *recr.calls["pairwise_sqdist_gather_hd"][1],
+             launches_g[b1_key["hd"]], "[g]")
     del recr
 
     # the same run again under the profiler (device busy an iteration, B4's
@@ -1568,6 +1695,8 @@ def main():
         held(key, op, args, kw, True)
     for key, call in recr.calls.items():
         i_err[key] = held(key, *call, False)
+    i_b1 = {mode: recr.calls[f"pairwise_sqdist_gather_{mode}"][1]
+            for mode in ("hd", "ld")}
     st_k = funcsne.funcsne_step(cfg_ne, st_q, Hq, hp_ne, ops=funcsne.KERNELS)
     st_p = funcsne.funcsne_step(cfg_ne, st_q, Hq, hp_ne, ops=funcsne.PLAIN)
     for name in ("hd_idx", "hd_d", "ld_idx", "new_flag", "step",
@@ -1628,7 +1757,8 @@ def main():
     acc, st_l, fit_s = embed_latents.embed_and_score(H, labels, dev)
     launches_l = dict(kernels.LAUNCHES)
     moved = {k_ for k_, v_ in launches_l.items() if v_}
-    want_l = {"pairwise_sqdist_gather", "ne_forces_scatter",
+    want_l = {gather_key(cfg_ne.dim_hd), gather_key(cfg_ne.dim_ld),
+              "ne_forces_scatter",
               merge_key("knn_merge_cand", cfg_ne.dim_hd, "hd", cfg_ne.k_hd,
                         c_hd_of(cfg_ne)),
               merge_key("knn_merge_cand", cfg_ne.dim_ld, "ld", cfg_ne.k_ld,
@@ -1636,6 +1766,13 @@ def main():
     check(moved == want_l, f"fit launched {sorted(moved)}, expected "
           f"{sorted(want_l)}")
     check(bool(torch.isfinite(st_l.Y).all()), "8-D embedding not finite")
+    # B1 at the fit's shapes (init_state's lists on the PCA-16 latents and
+    # on its 8-D Y: the warp route and the lanes), on the real latents
+    for mode in ("hd", "ld"):
+        x_l, qid_l, cand_l = i_b1[mode]
+        b1_entry(f"latents_{mode}", x_l, qid_l, cand_l,
+                 launches_l[gather_key(x_l.shape[1])], "[i]")
+    del i_b1, x_l, qid_l, cand_l
     log(f"[i] PCA 16 -> fit(dim_ld=8, n_iter=500): {500 / fit_s:.1f} steps/s "
         f"(init included); launches { {k_: v_ for k_, v_ in launches_l.items() if v_} }; "
         "one-shot 1-NN over 5 trials: "
@@ -1648,7 +1785,8 @@ def main():
         cfg_w = dataclasses.replace(cfg, dim_ld=d_ld)
         stq = funcsne.init_state(Xq, cfg_w, seed=1, device=dev)
         stq = stq._replace(Y=torch.round(stq.Y * 400.0) / 4.0)
-        for flags in ({}, dict(scatter_fused=False), dict(gather_fused=False)):
+        for flags in ({}, dict(scatter_fused=False), dict(gather_fused=False),
+                      dict(merge_fused=False)):
             recw = Recorder(funcsne, d_ld)
             funcsne.funcsne_step(dataclasses.replace(cfg_w, **flags), stq, Xq,
                                  hp, ops=recw.ops)
@@ -1718,7 +1856,8 @@ def main():
         # the kernels at this width, on the real state: one step of each
         # path with the launch counters set to 0 just before
         recs, recs_launch = {}, {}
-        for flags in ({}, dict(scatter_fused=False), dict(gather_fused=False)):
+        for flags in ({}, dict(scatter_fused=False), dict(gather_fused=False),
+                      dict(merge_fused=False)):
             recs[tuple(flags)] = Recorder(funcsne, d_ld)
             kernels.reset_launches()
             funcsne.funcsne_step(dataclasses.replace(cfg_w, **flags),
@@ -1780,12 +1919,22 @@ def main():
               (12.0 + 4.0 * d_ld) * sum(a[2].numel() for a, _ in b7w),
               max(held("B7", "ne_forces", a, kw_, False) for a, kw_ in b7w),
               recs_launch[("gather_fused",)]["ne_forces"], tag="[j]")
+        # B1's LD call of merge_fused=False at this width (list and
+        # candidates): the lanes up to LANE_M floats, the warp route past
+        key_u = gather_key(d_ld)
+        check(recs_launch[("merge_fused",)][key_u] == 1,
+              f"d={d_ld} merge_fused=False step: B1 LD launches "
+              f"{recs_launch[('merge_fused',)]}")
+        b1_entry(f"merge_fused_false_ld_d{d_ld}",
+                 *recs[("merge_fused",)].calls["pairwise_sqdist_gather_ld"][1],
+                 recs_launch[("merge_fused",)][key_u], "[j]")
         log(f"    (at dim_ld {d_ld}, a "
             + ("runtime width in tiles of 4" if d_ld not in (8, 16, 32)
                else "compile-time width")
             + f": B3 launches over the {CHUNK}-step chunk; B5 and B7 over "
             f"one step of their paths, B7's three timed together; the "
-            f"segment sum over one step of scatter_fused=False)")
+            f"segment sum over one step of scatter_fused=False, B1's LD "
+            f"call over one of merge_fused=False)")
         del st_w, s_k, recs, o3, o5, o7, b7w
 
     # B2 and B4 at K = 128, C = 64: init_state and one step of a config with

@@ -34,7 +34,8 @@
 // holds one element of [current, candidates] and scores it alone, so the
 // row's distances take one round trip; dedup is one __match_any_sync and
 // the rank merge runs on shuffles (see knn_merge_lanes_kernel).  Its
-// distances are bit for bit the warp route's (lane_sqdist).
+// distances are bit for bit the warp route's (lane_sqdist, in
+// row_sqdist.cuh, which B1's lane route shares).
 //
 // The ring route, rows of kRingMinM..kRingMaxM floats with M % 4 == 0 on
 // a 16-byte-aligned x (HD refinement and NND at 784, K = 128): on the
@@ -46,10 +47,11 @@
 // bulk copies, so a warp has `stages` rows in flight; with K, C <= 32 the
 // lists, dedup and merge live in registers and shuffles (see
 // knn_merge_ring_kernel).  Its distances are bit for bit the warp route's
-// (ring_score writes out warp_sqdist's roundings).  A block is kRingWarps
-// = 4 warps with 2 stages each, 3 past kRingWideC = 12 candidates
-// (ring_stages): measured against more stages and warps, which cost more
-// warps an SM than they gain.
+// (ring_score, in row_sqdist.cuh with the ring's constants, writes out
+// warp_sqdist's roundings; B1's ring route shares it).  A block is
+// kRingWarps = 4 warps with 2 stages each, 3 past kRingWideC = 12
+// candidates (ring_stages): measured against more stages and warps, which
+// cost more warps an SM than they gain.
 //
 // The warp route (everything else: narrow rows such as the latents' 16,
 // dim_ld 32, widths with M % 4 != 0).
@@ -77,18 +79,21 @@
 // launcher sizes the block and sets the kernel's shared-memory limit.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "row_sqdist.cuh"
 
 namespace {
 
 constexpr int kMaxK = 1024;
 constexpr int kMaxC = 128;
 constexpr int kWarps = 4;
-constexpr int kLaneM = 8;      // the lane route's widest row
 constexpr int kLaneWarps = 8;
-constexpr int kRingMinM = 128;     // the ring route's narrowest row
-constexpr int kRingChunks = 8;     // float4s of the query row a lane holds
-constexpr int kRingMaxM = 4 * 32 * kRingChunks;  // its widest, 1,024
-constexpr int kRingWarps = 4;
+using repro::kLaneM;               // the routes' bounds (row_sqdist.cuh)
+using repro::kRingChunks;
+using repro::kRingMaxM;
+using repro::kRingMinM;
+using repro::kRingWarps;
+using repro::lane_sqdist;
+using repro::ring_score;
 constexpr int kRingWideC = 12;     // past it, a third stage (ring_stages)
 constexpr int64_t kMaxSmem = 232448;  // a block's dynamic shared memory
 enum SlotKind { kUniform = 0, kOneHop = 1, kTwoHop = 2, kExtra = 3 };
@@ -307,60 +312,6 @@ static_assert(kRingWarps * ring_warp_bytes(kRingMaxM, kMaxK, kMaxC,
                                            ring_stages(kMaxC)) <= kMaxSmem,
               "the ring route's block must fit at K, C and M's bounds");
 
-// Scores the n rows row_of(0..n) against the query row (qv: lane holds
-// its float4s lane, lane + 32, ...) through the warp's ring of `stages`
-// whole rows: lane 0 keeps the ring filled by 1-D bulk copies, one
-// mbarrier a stage, and refills a stage after the butterfly of the row it
-// held, which every lane's reads of that stage precede; put(j, d) takes
-// row j's distance in lane 0.  Each distance is warp_sqdist's bit for bit:
-// the same chunks per lane in the same order, the same butterfly, and each
-// chunk's sum rounded as nvcc compiles warp_sqdist's expression for sm_90a
-// (dy * dy, fused multiply-adds of dx, dz, dw, then the add to the lane's
-// sum; its SASS), written with intrinsics so that nothing here depends on
-// how nvcc contracts it.
-template <class RowOf, class Put>
-__device__ __forceinline__ void ring_score(const MergeArgs& a, float* ring,
-                                           uint32_t bar0, int stages, int n,
-                                           const float4 (&qv)[kRingChunks],
-                                           int lane, RowOf row_of, Put put) {
-  const int m = static_cast<int>(a.m), nv = m >> 2;
-  const uint32_t bytes = 4u * static_cast<uint32_t>(m);
-  const auto issue = [&](int j) {  // lane 0: row j into stage j % stages
-    const int s = j % stages;
-    hopper::mbar_expect_tx(bar0 + 8 * s, bytes);
-    hopper::bulk_load(hopper::smem_u32(ring + s * m),
-                      a.x + static_cast<int64_t>(row_of(j)) * a.m, bytes,
-                      bar0 + 8 * s);
-  };
-  if (lane == 0) {
-    for (int j = 0; j < n && j < stages; ++j) issue(j);
-  }
-  for (int j = 0; j < n; ++j) {
-    const int s = j % stages;
-    hopper::mbar_wait(bar0 + 8 * s, (j / stages) & 1);
-    const float4* xc = reinterpret_cast<const float4*>(ring + s * m);
-    float acc = 0.f;
-#pragma unroll
-    for (int u = 0; u < kRingChunks; ++u) {
-      if (lane + 32 * u < nv) {
-        const float4 p = qv[u];
-        const float4 v = xc[lane + 32 * u];
-        const float dx = __fsub_rn(p.x, v.x), dy = __fsub_rn(p.y, v.y),
-                    dz = __fsub_rn(p.z, v.z), dw = __fsub_rn(p.w, v.w);
-        acc = __fadd_rn(acc, __fmaf_rn(dw, dw, __fmaf_rn(dz, dz, __fmaf_rn(
-                                 dx, dx, __fmul_rn(dy, dy)))));
-      }
-    }
-    for (int off = 16; off; off >>= 1)
-      acc += __shfl_xor_sync(repro::kFullMask, acc, off);
-    if (lane == 0) {
-      put(j, acc);
-      if (j + stages < n) issue(j + stages);
-    }
-  }
-  __syncwarp();
-}
-
 // The ring route: one warp per query row, as the warp route, with up to
 // `stages` candidate rows in flight (ring_score).  The query row is loaded
 // once into registers, first, so that its loads overlap the lists'.
@@ -456,7 +407,7 @@ __global__ void __launch_bounds__(kRingWarps * 32)
       n += __popc(lmask);
     }
     __syncwarp();
-    ring_score(a, ring, bar0, stages, n, qv, lane,
+    ring_score(a.x, a.m, ring, bar0, stages, n, qv, lane,
                [&](int j) { return sched[j]; },
                [&](int j, float d) { dist[j] = d; });
     const float cand_d = ok ? dist[cpos] : INFINITY;
@@ -509,7 +460,7 @@ __global__ void __launch_bounds__(kRingWarps * 32)
     }
     __syncwarp();
     ring_score(
-        a, ring, bar0, stages, n, qv, lane,
+        a.x, a.m, ring, bar0, stages, n, qv, lane,
         [&](int j) {
           const int e = sched[j];
           return e < k ? static_cast<int>(repro::clamp_row(L.cur[e], a.n))
@@ -565,51 +516,6 @@ int launch_ring(const MergeArgs* args, cudaStream_t stream) {
              static_cast<size_t>(smem), stream>>>(*args, stages);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// ||xa - xb||^2 by one lane, for m <= kLaneM: bit for bit the value that
-// warp_sqdist leaves in every lane.  There, part p of the row (a float, or
-// a float4 when vec4) is lane p's sum, and the butterfly adds the lanes'
-// sums in a fixed tree; lanes past the row hold exact zeros, so offsets 16
-// and 8 change nothing and the tree over offsets 4, 2, 1 remains.  The
-// explicit roundings keep nvcc from contracting a product into the next
-// sum, which warp_sqdist does not do either.
-__device__ __forceinline__ float lane_sqdist(const float* __restrict__ xa,
-                                             const float* __restrict__ xb,
-                                             int m, bool vec4) {
-  float part[kLaneM];
-#pragma unroll
-  for (int p = 0; p < kLaneM; ++p) part[p] = 0.f;
-  if (vec4) {
-    const float4* va = reinterpret_cast<const float4*>(xa);
-    const float4* vb = reinterpret_cast<const float4*>(xb);
-#pragma unroll
-    for (int p = 0; p < kLaneM / 4; ++p) {
-      if (p < m / 4) {
-        const float4 u = __ldg(va + p);
-        const float4 w = __ldg(vb + p);
-        const float dx = u.x - w.x, dy = u.y - w.y, dz = u.z - w.z,
-                    dw = u.w - w.w;
-        float acc = 0.f;
-        acc += dx * dx + dy * dy + dz * dz + dw * dw;  // as warp_sqdist
-        part[p] = acc;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int p = 0; p < kLaneM; ++p) {
-      if (p < m) {
-        const float d = __fsub_rn(__ldg(xa + p), __ldg(xb + p));
-        part[p] = __fmul_rn(d, d);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = kLaneM / 2; off; off >>= 1) {
-#pragma unroll
-    for (int p = 0; p < off; ++p) part[p] = __fadd_rn(part[p], part[p + off]);
-  }
-  return part[0];
 }
 
 // The lane route (m <= kLaneM, K + C <= 32): lane e holds element e of

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 LAUNCHES = {
     "pairwise_sqdist_gather": 0,
+    "pairwise_sqdist_gather_lanes": 0,
+    "pairwise_sqdist_gather_ring": 0,
     "knn_merge_cand_hd": 0,
     "knn_merge_cand_ld": 0,
     "knn_merge_hd": 0,

@@ -30,10 +30,11 @@ from repro_torch.kernels.knn_merge.ref import (knn_merge_cand_ref,
 # the kernel's bounds (csrc/knn_merge.cu kMaxK, kMaxC); FUnc-SNE's
 # validate_inputs states them for a config before any launch
 MAX_K, MAX_C, _MAX_TABLES = 1024, 128, 2
-# the lane route's bounds (csrc/knn_merge.cu kLaneM; one lane per element)
+# the lane route's bounds (csrc/row_sqdist.cuh kLaneM; one lane per element)
 LANE_M, LANE_SLOTS = 8, 32
-# the ring route's widths (kRingMinM: a float4 of each row for every lane;
-# kRingMaxM: the query row's float4s a lane holds in registers)
+# the ring route's widths (csrc/row_sqdist.cuh kRingMinM: a float4 of each
+# row for every lane; kRingMaxM: the query row's float4s a lane holds in
+# registers); B1's routes share them
 RING_MIN_M, RING_MAX_M = 128, 1024
 _KINDS = {"uniform": 0, "one_hop": 1, "two_hop": 2, "extra": 3}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

@@ -1,5 +1,20 @@
 """Squared distances, gathered (B1) and pre-gathered (B6): plain versions on
-the CPU, the CUDA kernels of ``csrc/pairwise_sqdist.cu`` on the card."""
+the CPU, the CUDA kernels of ``csrc/pairwise_sqdist.cu`` on the card.
+
+B1 runs one of three routes, chosen by the row width (``gather_route``),
+with the bounds of B2/B4's routes (``knn_merge.ops``):
+
+- lanes: rows of at most ``LANE_M`` floats (the LD lists), one thread per
+  (query, candidate) pair;
+- ring: rows of ``RING_MIN_M`` to ``RING_MAX_M`` floats with M % 4 == 0 on
+  a 16-byte-aligned x (MNIST's 784), one warp per query row with a ring of
+  whole candidate rows in shared memory (the kernel's launcher sizes it);
+- warp: the rest (16, 32, 783 columns, a misaligned x), one warp per pair.
+
+Each route counts its launches under its own key
+(``pairwise_sqdist_gather_lanes``, ``pairwise_sqdist_gather_ring``; the
+warp route ``pairwise_sqdist_gather``).  Their distances agree bit for
+bit."""
 from __future__ import annotations
 
 import ctypes
@@ -7,12 +22,32 @@ import ctypes
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.knn_merge.ops import LANE_M, RING_MAX_M, RING_MIN_M
 from repro_torch.kernels.pairwise_sqdist.ref import (
     pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P]
 _ARGTYPES_PRE = [_P, _P, _I64, _I64, _I64, _P, _P]
+
+
+def gather_route(m, aligned=True):
+    """The route of B1 over rows of ``m`` floats (``aligned``: x starts on
+    16 bytes): "lanes" when m <= LANE_M; "ring" when ``aligned``, m % 4 ==
+    0 and RING_MIN_M <= m <= RING_MAX_M; else "warp"."""
+    if m <= LANE_M:
+        return "lanes"
+    if aligned and m % 4 == 0 and RING_MIN_M <= m <= RING_MAX_M:
+        return "ring"
+    return "warp"
+
+
+def _run(entry, x, qid, cand, out):
+    n, m = x.shape
+    b, c = cand.shape
+    with torch.cuda.device(x.device):
+        _build.call(entry, _ARGTYPES, x.data_ptr(), n, m, qid.data_ptr(),
+                    cand.data_ptr(), b, c, out.data_ptr(), _build.stream_of(x))
 
 
 def pairwise_sqdist_gather(x, qid, cand):
@@ -28,14 +63,11 @@ def pairwise_sqdist_gather(x, qid, cand):
     req(cand.dtype == torch.int32 and cand.ndim == 2 and cand.is_contiguous()
         and cand.shape[0] == qid.shape[0],
         "cand must be a contiguous (B, C) int32 tensor")
-    n, m = x.shape
-    b, c = cand.shape
-    out = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.call("repro_pairwise_sqdist_gather", _ARGTYPES,
-                    x.data_ptr(), n, m, qid.data_ptr(), cand.data_ptr(), b, c,
-                    out.data_ptr(), _build.stream_of(x))
-    LAUNCHES["pairwise_sqdist_gather"] += 1
+    out = torch.empty(cand.shape, dtype=torch.float32, device=x.device)
+    route = gather_route(x.shape[1], x.data_ptr() % 16 == 0)
+    key = "pairwise_sqdist_gather" + ("" if route == "warp" else f"_{route}")
+    _run(f"repro_{key}", x, qid, cand, out)
+    LAUNCHES[key] += 1
     return out
 
 
