@@ -35,7 +35,9 @@ checks them:
       beside the default path's from the same state); B6 also at
       init_state's C = 32 and at C = 14 of c_hd_rev = 4; the times of B5-B7
       and of B4 at FUnc-SNE's HD and LD-rescore shapes (each also from
-      CUDA graphs and split by kernel name); the segment sum of
+      CUDA graphs and split by kernel name); 20-step profiler windows of
+      merge_fused=False, scatter_fused=False and gather_fused=False (device
+      busy a step, the share of B1, B5 and B7); the segment sum of
       the unfused paths bit-identical over two calls, each of its passes
       (count, scan, place, order and sum) timed from a profiler trace and
       the whole call from CUDA graphs beside ``index_add_``, its run
@@ -90,10 +92,16 @@ checks them:
       and B7 against their plain versions, the segment sum bit for bit
       against the CPU's ``index_add_``, one step kernels vs plain, a
       50-step chunk on the kernels equal to its steps one by one, and
-      where those steps part from the plain versions' (reported)), and B2
-      and B4 at K = 128, C = 64 from one step of such a config; B3, B2's LD
+      where those steps part from the plain versions' (reported)), B5 and
+      B7 on the warp route at a compile-time width no C1 row runs (one step
+      of each of their paths at dim_ld 16), a sweep of B5's and B7's
+      routes against their warp route (widths 1-4, 8 and 32, B = 1 and an
+      odd 3,001, one to four segments, two rows a warp at K 7 and 16, two
+      chunks at K 48, misaligned rows), and B2 and B4 at
+      K = 128, C = 64 from one step of such a config; B3, B2's LD
       refinement and B2/B4 at K = 128 also from CUDA graphs and split by
-      kernel name; each row's
+      kernel name (B5 and B7 from CUDA graphs in
+      ``scripts/forces_merge_ab.py``); each row's
       launches counted over a step or chunk of its own path and shape; C3,
       two runs of one step and of F_ITERS
       steps of ``scatter_fused=False`` and ``gather_fused=False`` from one
@@ -124,6 +132,16 @@ is held in phase (f), on the cand_fused=False HD call at 783 of X's columns
 cand_fused=False on the 16-wide latents drives it with the counters at 0
 (held on the grid and on the real latents, and timed).
 
+B5 and B7 run the rounds route on rows of at most 4 floats (the flag
+paths at dim_ld 2), the staged route at 8 and 32 floats (dim_ld 8, 32),
+the warp route elsewhere (dim_ld 5, 16); each route has its own launch
+counter
+(``edges_key``) and every expected-launch set follows the route of its
+width.  Every B5 and B7 call held in phases (f) and (j) also checks that it
+launched its own route once and nothing else, that its outputs are bit
+for bit the warp route's (int32 views), and on quantised inputs that its
+edges equal the plain version's exactly.
+
 Phase (b) also holds threefry's draws made on the card (randint at
 (70,000, 10) with spans 70,000 and 32, bernoulli, a fold_in/split chain)
 against the same draws made on the CPU, bit for bit.  Phase (f) also
@@ -140,8 +158,10 @@ beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -234,6 +254,12 @@ ACC_MIN = 0.95                 # one-shot 1-NN of the 8-D embedding
 # runtime-width path, 8 (the latents pipeline) and 32 (the dry run's
 # embed_1m) the compile-time widths
 C1_WIDTHS = (5, 8, 32)
+# B5 and B7: their entry points, and the kernel each route launches (by the
+# name the profiler gives it)
+EDGE_OPS = ("ne_forces", "ne_forces_gather")
+EDGE_KERNELS = {"rounds": "forces_rounds_kernel",
+                "staged": "forces_staged_kernel",
+                "warp": "forces_edges_kernel"}
 
 
 def check(cond, msg):
@@ -372,7 +398,8 @@ def main():
     from repro_torch.kernels.knn_merge.ops import knn_merge, knn_merge_cand
     from repro_torch.kernels.knn_merge.ref import (knn_merge_cand_ref,
                                                    knn_merge_ref)
-    from repro_torch.kernels.ne_forces.ops import (ne_forces,
+    from repro_torch.kernels.ne_forces import ops as force_ops
+    from repro_torch.kernels.ne_forces.ops import (edges_route, ne_forces,
                                                    ne_forces_gather,
                                                    ne_forces_scatter)
     from repro_torch.kernels.ne_forces.ref import (ne_forces_gather_ref,
@@ -410,6 +437,13 @@ def main():
         route = gather_route(m, aligned)
         return "pairwise_sqdist_gather" + ("" if route == "warp"
                                            else f"_{route}")
+
+    def edges_key(op, d):
+        """The launch counter of B5 ("ne_forces_gather") or B7
+        ("ne_forces") at width d: the rounds or staged route's, or the warp
+        route's."""
+        route = edges_route(d)
+        return op if route == "warp" else f"{op}_{route}"
     t_start = time.perf_counter()
 
     # ---- (a) build and device ------------------------------------------
@@ -833,10 +867,12 @@ def main():
     paths = {
         "default": ({}, b2 | b3),
         "gather_fused=False": (dict(gather_fused=False),
-                               {"pairwise_sqdist", "ne_forces",
+                               {"pairwise_sqdist",
+                                edges_key("ne_forces", cfg.dim_ld),
                                 "segment_sum"}),
         "scatter_fused=False": (dict(scatter_fused=False),
-                                b2 | {"ne_forces_gather", "segment_sum"}),
+                                b2 | {edges_key("ne_forces_gather",
+                                                cfg.dim_ld), "segment_sum"}),
         "merge_fused=False": (dict(merge_fused=False),
                               set(b1_key.values()) | b3),
         "c_hd_rev=4": (dict(c_hd_rev=4), b2 | b3),
@@ -848,6 +884,17 @@ def main():
     exact_ops = {"pairwise_sqdist_gather", "knn_merge_cand", "pairwise_sqdist",
                  "knn_merge"}
 
+    @contextlib.contextmanager
+    def warp_route():
+        """B5 and B7 on their warp route whatever the width (the kernel
+        their rounds and staged routes are held to)."""
+        saved = force_ops.edges_route
+        force_ops.edges_route = lambda *_: "warp"
+        try:
+            yield
+        finally:
+            force_ops.edges_route = saved
+
     def flat(v):
         return [t for x in v for t in flat(x)] if isinstance(v, tuple) \
             else [v]
@@ -857,8 +904,27 @@ def main():
         abs error.  The scoring kernels exact on quantised inputs, their
         distances within TOL_SQDIST_REL on real ones (ids and flags may
         part at a near tie there); forces within TOL_FORCE_REL; the segment
-        sum bit for bit against the CPU's sequential index_add_."""
-        got = flat(getattr(funcsne.KERNELS, op)(*args, **kw))
+        sum bit for bit against the CPU's sequential index_add_.  B5 and B7
+        also: one launch of the route of their width and nothing else, the
+        outputs bit for bit the warp route's (int32 views), the edges exact
+        on quantised inputs (each edge is the plain version's arithmetic;
+        only the aggregates and wsums sum in another order)."""
+        if op in EDGE_OPS:
+            key_e = edges_key(op, args[0].shape[1])
+            before = dict(kernels.LAUNCHES)
+            got = flat(getattr(funcsne.KERNELS, op)(*args, **kw))
+            moved = {k_: v_ - before[k_] for k_, v_ in kernels.LAUNCHES.items()
+                     if v_ != before[k_]}
+            check(moved == {key_e: 1}, f"{key}: launched {moved}, one launch "
+                  f"of {key_e} expected")
+            with warp_route():
+                warp = flat(getattr(funcsne.KERNELS, op)(*args, **kw))
+            check(all((g is None and w is None) or torch.equal(
+                g.view(torch.int32), w.view(torch.int32))
+                for g, w in zip(got, warp)),
+                f"{key}: {key_e} not bit for bit the warp route's")
+        else:
+            got = flat(getattr(funcsne.KERNELS, op)(*args, **kw))
         if op == "segment_sum":
             want = [segment_sum_ref(args[0].cpu(), args[1].cpu(), args[2])
                     .to(dev)]
@@ -888,6 +954,9 @@ def main():
                 check(rel <= TOL_SQDIST_REL, f"{key} relative error {rel}")
             elif op in exact_ops:
                 continue
+            elif op in EDGE_OPS and quantised and g.ndim == 3:
+                check(torch.equal(g, w), f"{key}: edges not exact on "
+                      "quantised input")
             else:
                 e = max_err(g, w)
                 check(e <= TOL_FORCE_REL * float(w.abs().max()),
@@ -1018,40 +1087,49 @@ def main():
     b1_entry("misaligned", x_mis, qid_u, cand_u, 0, "[f]")
     del x_mis, x_u, qid_u, cand_u, unf
 
-    # where a merge_fused=False step's device time goes: a 20-step profiler
-    # window from the main path's final state, B1's share by kernel name
-    cfg_mf = dataclasses.replace(cfg, merge_fused=False)
-    win_mf = funcsne.make_chunked_step(
-        cfg_mf, 20, schedule=funcsne.default_schedule, n_iter=ITERS + F_ITERS)
-    win_mf(st, X, hp)                      # warm-up, untimed
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        win_mf(st, X, hp)
+    def flag_window(label, name, match):
+        """Where a step of the flag path ``label`` spends its device time:
+        a 20-step profiler window from the main path's final state, with
+        the share of ``name``'s kernels (kernel names holding ``match``)."""
+        win = funcsne.make_chunked_step(
+            dataclasses.replace(cfg, **paths[label][0]), 20,
+            schedule=funcsne.default_schedule, n_iter=ITERS + F_ITERS)
+        win(st, X, hp)                     # warm-up, untimed
+        kernels.reset_launches()
         torch.cuda.synchronize()
-    rows_mf = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    del prof
-    busy_mf = sum(r[1] for r in rows_mf)
-    b1_mf = [r for r in rows_mf if "sqdist_gather" in r[0]]
-    b1_ms = sum(r[1] for r in b1_mf)
-    check(b1_ms > 0, "the profiler saw no B1 kernel in merge_fused=False")
-    log(f"[f] profiler, 20 steps of merge_fused=False: device busy "
-        f"{busy_mf / 20:.4f} ms/step, B1 {b1_ms / 20:.4f} ms/step "
-        f"({b1_ms / busy_mf:.1%}; launches "
-        f"{ {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_} }; "
-        + ", ".join(f"{k_[:40]} {t_:.4f} ms in {n_} events"
-                    for k_, t_, n_ in b1_mf)
-        + f"); the path ran {1e3 / f_sps['merge_fused=False']:.3f} ms/step "
-        f"of wall time in its {F_ITERS} steps, so the device idles about "
-        f"{1 - busy_mf / 20 / (1e3 / f_sps['merge_fused=False']):.1%}; "
-        "device time by kernel:")
-    for key, ms, cnt in sorted(rows_mf, key=lambda r: -r[1])[:8]:
-        log(f"    {ms:9.3f} ms  {cnt:5d}x  {key[:90]}")
-    del rows_mf, b1_mf
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            win(st, X, hp)
+            torch.cuda.synchronize()
+        rows_w = [(e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        del prof
+        busy_w = sum(r[1] for r in rows_w)
+        mine = [r for r in rows_w if match in r[0]]
+        mine_ms = sum(r[1] for r in mine)
+        check(mine_ms > 0, f"the profiler saw no {name} kernel in {label}")
+        log(f"[f] profiler, 20 steps of {label}: device busy "
+            f"{busy_w / 20:.4f} ms/step, {name} {mine_ms / 20:.4f} ms/step "
+            f"({mine_ms / busy_w:.1%}; launches "
+            f"{ {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_} }; "
+            + ", ".join(f"{k_[:40]} {t_:.4f} ms in {n_} events"
+                        for k_, t_, n_ in mine)
+            + f"); the path ran {1e3 / f_sps[label]:.3f} ms/step of wall "
+            f"time in its {F_ITERS} steps, so the device idles about "
+            f"{1 - busy_w / 20 / (1e3 / f_sps[label]):.1%}; device time by "
+            "kernel:")
+        for key, ms, cnt in sorted(rows_w, key=lambda r: -r[1])[:8]:
+            log(f"    {ms:9.3f} ms  {cnt:5d}x  {key[:90]}")
+
+    # where a flag path's step spends its device time: merge_fused=False
+    # (B1), scatter_fused=False (B5), gather_fused=False (B7)
+    flag_window("merge_fused=False", "B1", "sqdist_gather")
+    flag_window("scatter_fused=False", "B5",
+                EDGE_KERNELS[edges_route(cfg.dim_ld)])
+    flag_window("gather_fused=False", "B7",
+                EDGE_KERNELS[edges_route(cfg.dim_ld)])
 
     # B5-B7 at the flag paths' shapes, on the real final state
     _, (q, c), _ = f_rec["gather_fused=False"].calls["pairwise_sqdist"]
@@ -1068,7 +1146,8 @@ def main():
     b7 = [f_rec["gather_fused=False"].calls[f"ne_forces_{i}"][1:]
           for i in range(3)]
     b7_out = [ne_forces_ref(*a, **kw) for a, kw in b7]
-    entry("ne_forces", "src/repro_torch/csrc/ne_forces.cu",
+    key7 = edges_key("ne_forces", cfg.dim_ld)
+    entry(key7, "src/repro_torch/csrc/ne_forces.cu",
           "src/repro/kernels/ne_forces/kernel.py:70",
           lambda: [ne_forces(*a, **kw) for a, kw in b7],
           lambda: [ne_forces_ref(*a, **kw) for a, kw in b7], 50,
@@ -1076,21 +1155,20 @@ def main():
               t for o in b7_out for t in o))),
           20.0 * sum(a[2].numel() for a, _ in b7),
           max(f_err[f"ne_forces_{i}"] for i in range(3)),
-          f_launch["gather_fused=False"]["ne_forces"], tag="[f]",
-          graphed=True)
+          f_launch["gather_fused=False"][key7], tag="[f]", graphed=True)
     log("    (B7: the three launches of one step, timed together)")
     _, (x5, q5, n5, c5, a5), kw5 = f_rec["scatter_fused=False"].calls[
         "ne_forces_gather"]
     o5 = [t for t in flat(ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5))
           if t is not None]
-    entry("ne_forces_gather", "src/repro_torch/csrc/ne_forces.cu",
+    key5 = edges_key("ne_forces_gather", cfg.dim_ld)
+    entry(key5, "src/repro_torch/csrc/ne_forces.cu",
           "src/repro/kernels/ne_forces/kernel.py:243",
           lambda: ne_forces_gather(x5, q5, n5, c5, a5, **kw5),
           lambda: ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5), 50,
           nbytes(x5, q5, n5, c5, a5, *o5), 20.0 * n5.numel(),
           f_err["ne_forces_gather"],
-          f_launch["scatter_fused=False"]["ne_forces_gather"], tag="[f]",
-          graphed=True)
+          f_launch["scatter_fused=False"][key5], tag="[f]", graphed=True)
 
     _, (ix, vx, nx), _ = f_rec["scatter_fused=False"].calls["segment_sum"]
     out_s = torch.empty((nx, vx.shape[1]), device=dev)
@@ -1899,18 +1977,20 @@ def main():
             "ne_forces_gather"]
         o5 = [t for t in flat(ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5))
               if t is not None]
-        entry(f"ne_forces_gather_d{d_ld}", "src/repro_torch/csrc/ne_forces.cu",
+        key5 = edges_key("ne_forces_gather", d_ld)
+        entry(f"{key5}_d{d_ld}", "src/repro_torch/csrc/ne_forces.cu",
               "src/repro/kernels/ne_forces/kernel.py:243",
               lambda: ne_forces_gather(x5, q5, n5, c5, a5, **kw5),
               lambda: ne_forces_gather_ref(x5, q5, n5, c5, a5, **kw5), 20,
               nbytes(x5, q5, n5, c5, a5, *o5), (12.0 + 4.0 * d_ld) * n5.numel(),
               held("B5", *recs[("scatter_fused",)].calls["ne_forces_gather"],
                    False),
-              recs_launch[("scatter_fused",)]["ne_forces_gather"], tag="[j]")
+              recs_launch[("scatter_fused",)][key5], tag="[j]")
         b7w = [recs[("gather_fused",)].calls[f"ne_forces_{i}"][1:]
                for i in range(3)]
         o7 = [ne_forces_ref(*a, **kw_) for a, kw_ in b7w]
-        entry(f"ne_forces_d{d_ld}", "src/repro_torch/csrc/ne_forces.cu",
+        key7 = edges_key("ne_forces", d_ld)
+        entry(f"{key7}_d{d_ld}", "src/repro_torch/csrc/ne_forces.cu",
               "src/repro/kernels/ne_forces/kernel.py:70",
               lambda: [ne_forces(*a, **kw_) for a, kw_ in b7w],
               lambda: [ne_forces_ref(*a, **kw_) for a, kw_ in b7w], 20,
@@ -1918,7 +1998,7 @@ def main():
                      *flat(tuple(t for o in o7 for t in o))),
               (12.0 + 4.0 * d_ld) * sum(a[2].numel() for a, _ in b7w),
               max(held("B7", "ne_forces", a, kw_, False) for a, kw_ in b7w),
-              recs_launch[("gather_fused",)]["ne_forces"], tag="[j]")
+              recs_launch[("gather_fused",)][key7], tag="[j]")
         # B1's LD call of merge_fused=False at this width (list and
         # candidates): the lanes up to LANE_M floats, the warp route past
         key_u = gather_key(d_ld)
@@ -1936,6 +2016,135 @@ def main():
             f"segment sum over one step of scatter_fused=False, B1's LD "
             f"call over one of merge_fused=False)")
         del st_w, s_k, recs, o3, o5, o7, b7w
+
+    # B5 and B7 at a compile-time width that no C1 row runs, on the warp
+    # route: one step of scatter_fused=False and one of gather_fused=False
+    # at dim_ld 16 from init_state, on the quantised X (Y on a quarter grid)
+    # and on the real X, their launches counted under the route of the
+    # width and each B5/B7 call held as above
+    for d_w, route_w in ((16, "warp"),):
+        cfg_ww = dataclasses.replace(cfg, dim_ld=d_w)
+        check(edges_route(d_w) == route_w,
+              f"B5/B7 at d = {d_w}: {edges_route(d_w)}, not {route_w}")
+        for x_, quantised in ((Xq, True), (X, False)):
+            st_ww = funcsne.init_state(x_, cfg_ww, seed=1, device=dev)
+            if quantised:
+                st_ww = st_ww._replace(Y=torch.round(st_ww.Y * 400.0) / 4.0)
+            for flags, op, n_calls in ((dict(scatter_fused=False),
+                                        "ne_forces_gather", 1),
+                                       (dict(gather_fused=False), "ne_forces",
+                                        3)):
+                rec_w = Recorder(funcsne, d_w)
+                kernels.reset_launches()
+                funcsne.funcsne_step(dataclasses.replace(cfg_ww, **flags),
+                                     st_ww, x_, hp, ops=rec_w.ops)
+                key_w = edges_key(op, d_w)
+                check(kernels.LAUNCHES[key_w] == n_calls,
+                      f"d={d_w} {next(iter(flags))}=False: {key_w} launched "
+                      f"{kernels.LAUNCHES[key_w]} times")
+                for key, call in rec_w.calls.items():
+                    if call[0] in EDGE_OPS:
+                        held(f"{key} d={d_w}", *call, quantised)
+                del rec_w
+            del st_ww
+            torch.cuda.empty_cache()
+        log(f"[j] B5 and B7 at dim_ld {d_w}: the {route_w} route, one step of "
+            f"scatter_fused=False and of gather_fused=False, held on "
+            f"quantised and real inputs")
+
+    # B5's and B7's routes against their warp route at shapes no path
+    # gives them, on random inputs: each width of the rounds and staged
+    # routes; B = 1 and an odd B (in pair mode the last warp's second row
+    # lies past the end); one to four segments, two chunks at 48 edges, two
+    # rows a warp at one segment of 7 or 16 edges; ids past both ends;
+    # neighbour rows on 16 bytes and off them (at 8 and 32 those take the
+    # warp route).  Each call: one launch of its route and nothing else,
+    # outputs bit for bit the warp route's (int32 views), within
+    # TOL_FORCE_REL of the plain version's
+    sweep_b5 = (
+        ((("attraction", 32), ("repulsion", 16), ("repulsion", 16)),
+         (True, True, False)),
+        ((("repulsion", 16),), (True,)),
+        ((("attraction", 7),), (True,)),
+        ((("attraction", 48), ("repulsion", 5), ("repulsion", 16),
+          ("repulsion", 3)), (True, False, True, True)))
+    sweep_fns = {"ne_forces": (ne_forces, ne_forces_ref),
+                 "ne_forces_gather": (ne_forces_gather, ne_forces_gather_ref)}
+    gen_s = torch.Generator(device=dev).manual_seed(23)
+    n_s, alpha_s = 5000, torch.tensor(0.9, device=dev)
+    n_sweep, sweep_routes = 0, set()
+
+    def rows_s(*shape):
+        """Random float32 (``shape``), on 16 bytes and 4 bytes past them."""
+        flat_ = torch.randn(math.prod(shape) + 1, generator=gen_s,
+                            device=dev)
+        return flat_[:-1].view(shape), flat_[1:].view(shape)
+
+    def coef_s(b_, k_):
+        c_ = torch.rand((b_, k_), generator=gen_s, device=dev)
+        return torch.where(c_ < 0.1, torch.zeros_like(c_), c_)
+
+    for d_s in (1, 2, 3, 4, 8, 32):
+        for b_s in (1, 3001):
+            calls_s = []
+            x_s = rows_s(n_s, d_s)
+            qid_s = torch.randint(-2, n_s + 2, (b_s,), generator=gen_s,
+                                  device=dev, dtype=torch.int32)
+            for segs, emit in sweep_b5:
+                k_s = sum(size for _, size in segs)
+                nbr_s = torch.randint(-3, n_s + 3, (b_s, k_s), generator=gen_s,
+                                      device=dev, dtype=torch.int32)
+                c_s = coef_s(b_s, k_s)
+                for x_a in x_s:
+                    calls_s.append(("ne_forces_gather", x_a,
+                                    (x_a, qid_s, nbr_s, c_s, alpha_s),
+                                    dict(segments=segs, emit_edges=emit)))
+            for k_s, mode in ((7, "attraction"), (16, "repulsion"),
+                              (32, "attraction"), (48, "repulsion")):
+                y_s, c_s = rows_s(b_s, d_s)[0], coef_s(b_s, k_s)
+                for nb in rows_s(b_s, k_s, d_s):
+                    calls_s.append(("ne_forces", nb, (y_s, nb, c_s, alpha_s),
+                                    dict(mode=mode)))
+            for op, src_s, args, kw in calls_s:
+                fn, ref = sweep_fns[op]
+                route = edges_route(d_s, src_s.data_ptr() % 16 == 0)
+                key_s = op if route == "warp" else f"{op}_{route}"
+                sweep_routes.add(key_s)
+                label = (f"[j] sweep {op} d={d_s} B={b_s} "
+                         f"{kw.get('segments', kw.get('mode'))} at "
+                         f"{src_s.data_ptr() % 16}")
+                before = dict(kernels.LAUNCHES)
+                got = flat(fn(*args, **kw))
+                moved = {k_: v_ - before[k_] for k_, v_ in
+                         kernels.LAUNCHES.items() if v_ != before[k_]}
+                check(moved == {key_s: 1},
+                      f"{label}: launched {moved}, one launch of {key_s} "
+                      "expected")
+                with warp_route():
+                    warp = flat(fn(*args, **kw))
+                want = flat(ref(*args, **kw))
+                for g, w, r in zip(got, warp, want):
+                    if g is None or w is None:
+                        check(g is None and w is None and r is None,
+                              f"{label}: outputs emitted differ")
+                        continue
+                    check(torch.equal(g.view(torch.int32),
+                                      w.view(torch.int32)),
+                          f"{label}: not bit for bit the warp route's")
+                    check(max_err(g, r) <= TOL_FORCE_REL *
+                          max(float(r.abs().max()), 1e-30),
+                          f"{label}: error {max_err(g, r)} against the plain "
+                          "version")
+                n_sweep += 1
+    check(sweep_routes >= {f"{op}_{r}" for op in EDGE_OPS
+                           for r in ("rounds", "staged")},
+          f"the sweep reached {sorted(sweep_routes)}")
+    log(f"[j] B5/B7 sweep: {n_sweep} calls (widths 1-4, 8, 32; B 1 and "
+        f"3001; rows on and off 16 bytes), routes {sorted(sweep_routes)}, "
+        "each bit for bit its warp route and within TOL_FORCE_REL of the "
+        "plain version")
+    del calls_s, x_s, got, warp, want
+    torch.cuda.empty_cache()
 
     # B2 and B4 at K = 128, C = 64: init_state and one step of a config with
     # those list sizes (58 two-hop HD candidates), for the candidate-fused

@@ -6,15 +6,19 @@ A script makes its cases in a ``prepare`` process with the older checkout
 then starts one ``turn`` process per checkout and turn, old, new, new, old
 for each round.  A turn imports its checkout's ``repro_torch`` (its kernels
 built from that checkout's sources into its own ``build/``), runs every
-case once through ``funcsne.KERNELS``, saves the outputs, notes the launch
-counters each case moved and times each case from CUDA graphs (``REPEATS``
-replays of a graph of ``REPS`` calls).
+case once through ``funcsne.KERNELS`` (``case_fn``), saves the outputs,
+notes the launch counters each case moved and times each case from CUDA
+graphs (``REPEATS`` replays of a graph of ``REPS`` calls).
+``kernel_usage`` reads a checkout's registers and spills from its build
+log.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -53,6 +57,17 @@ def flat(v):
         else [v]
 
 
+def case_fn(funcsne, op, args, kw):
+    """The call of one case: ``funcsne.KERNELS.<op>(*args, **kw)``, or with
+    ``op`` "calls" the recorded calls ``args`` = [(op, args, kw), ...] run
+    in order as one case (B7's three launches of a step)."""
+    if op == "calls":
+        fns = [(getattr(funcsne.KERNELS, o), a, k) for o, a, k in args]
+        return lambda: [f(*a, **k) for f, a, k in fns]
+    fn = getattr(funcsne.KERNELS, op)
+    return lambda: fn(*args, **kw)
+
+
 def turn(root: str, inputs: str, out: str) -> int:
     """Run and time every case with ``root``'s kernels; save the outputs to
     ``out``; print one JSON line {"ms": {case: [ms, ...]}, "routes": {case:
@@ -64,11 +79,11 @@ def turn(root: str, inputs: str, out: str) -> int:
     cases = torch.load(inputs, weights_only=False)
     res, outs, routes = {}, {}, {}
     for name, (op, args, kw, *_) in sorted(cases.items()):
-        fn = getattr(funcsne.KERNELS, op)
+        fn = case_fn(funcsne, op, args, kw)
         kernels.reset_launches()
-        outs[name] = [t.cpu() for t in flat(fn(*args, **kw))]
+        outs[name] = [t.cpu() for t in flat(fn()) if t is not None]
         routes[name] = sorted(k for k, v in kernels.LAUNCHES.items() if v)
-        res[name] = graph_ms(torch, lambda: fn(*args, **kw))
+        res[name] = graph_ms(torch, fn)
     torch.save(outs, out)
     print(json.dumps({"ms": res, "routes": routes}), flush=True)
     return 0
@@ -105,6 +120,28 @@ def card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def kernel_usage(root, pattern):
+    """{kernel entry: ptxas's registers and spills} for the entries of
+    ``root``'s newest kernel build whose mangled name holds ``pattern``
+    (the build's ``-Xptxas -v`` log, ``build/build_<tag>.log``)."""
+    logs = sorted(glob.glob(os.path.join(root, "build", "build_*.log")),
+                  key=os.path.getmtime)
+    if not logs:
+        return {}
+    usage, entry = {}, None
+    with open(logs[-1]) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1) if pattern in m.group(1) else None
+            elif entry and "spill stores" in line:
+                usage[entry] = line.strip()
+            elif entry and "Used" in line and "registers" in line:
+                usage[entry] = (re.search(r"Used \d+ registers", line)
+                                .group(0) + "; " + usage.get(entry, ""))
+    return usage
 
 
 def best(turns, name):

@@ -24,7 +24,11 @@ LAUNCHES = {
     "ne_forces_scatter": 0,
     "pairwise_sqdist": 0,
     "ne_forces": 0,
+    "ne_forces_rounds": 0,
+    "ne_forces_staged": 0,
     "ne_forces_gather": 0,
+    "ne_forces_gather_rounds": 0,
+    "ne_forces_gather_staged": 0,
     "segment_sum": 0,
     "flash_attention_wgmma": 0,
     "flash_attention_tf32": 0,

@@ -1,6 +1,22 @@
 """Neighbour-embedding forces: scatter-fused (B3), index-taking with per-edge
 output (B5) and pre-gathered (B7).  Plain versions on the CPU, the CUDA
-kernels of ``csrc/ne_forces.cu`` on the card."""
+kernels of ``csrc/ne_forces.cu`` on the card.
+
+B5 and B7 run one of three routes (``edges_route``):
+
+- rounds: d <= ``ROUNDS_MAX_D``; a warp runs a row's rounds (B3's plan:
+  two segments of at most 16 edges share a round on the half-warps), or
+  two rows of one such segment;
+- staged: d in ``STAGED_WIDTHS`` with the neighbour rows on 16 bytes; the
+  same rounds, with each chunk of 32 neighbour rows and edges passed
+  through shared memory;
+- warp: every other row; one warp per row.
+
+Each route counts its launches under its own key (``ne_forces_rounds``,
+``ne_forces_staged``, ``ne_forces_gather_rounds``,
+``ne_forces_gather_staged``; the warp route ``ne_forces`` and
+``ne_forces_gather``).  Their outputs agree bit for bit.  The C entries
+refuse a width or a row they do not take."""
 from __future__ import annotations
 
 import ctypes
@@ -14,6 +30,22 @@ from repro_torch.kernels.ne_forces.ref import (
 _MAX_SEG = 4
 _MODES = {"attraction": 0, "repulsion": 1}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+# the routes of B5 and B7 by width (csrc/ne_forces.cu: kRoundsMaxD and the
+# staged entry's cases): the staged route at the widths the flag paths run
+# past the rounds route's
+ROUNDS_MAX_D = 4
+STAGED_WIDTHS = (8, 32)
+
+
+def edges_route(d, aligned=True):
+    """The route of B5 and B7 at width ``d``: "rounds" when d <=
+    ROUNDS_MAX_D, "staged" when d is in STAGED_WIDTHS and the neighbour
+    rows' source is ``aligned`` on 16 bytes, else "warp"."""
+    if d <= ROUNDS_MAX_D:
+        return "rounds"
+    return "staged" if d in STAGED_WIDTHS and aligned else "warp"
 
 
 class _ForceArgs(ctypes.Structure):
@@ -68,14 +100,22 @@ def _run(entry, a, d, like):
                     ctypes.byref(a), d, _build.stream_of(like))
 
 
-def _launch_edges(a, segments, edges, d, like):
+def _launch_edges(a, segments, edges, d, src, key):
+    """Fill B5's or B7's argument block, launch the route of width ``d``
+    and of the neighbour rows' source ``src`` and count it under ``key``
+    (the warp route's) or ``key_<route>``."""
     k0 = 0
     for i, (mode, size) in enumerate(segments):
         a.seg_start[i], a.seg_size[i] = k0, size
         a.seg_mode[i] = _MODES[mode]
         a.edge[i] = None if edges[i] is None else edges[i].data_ptr()
         k0 += size
-    _run("repro_ne_forces_edges", a, d, like)
+    route = edges_route(d, src.data_ptr() % 16 == 0)
+    entry = "repro_ne_forces_edges"
+    if route != "warp":
+        entry, key = f"{entry}_{route}", f"{key}_{route}"
+    _run(entry, a, d, src)
+    LAUNCHES[key] += 1
 
 
 def ne_forces(y, nbr, coef, alpha, *, mode: str):
@@ -105,8 +145,7 @@ def ne_forces(y, nbr, coef, alpha, *, mode: str):
     a = _EdgeArgs(y=y.data_ptr(), nbr=nbr.data_ptr(), coef=coef.data_ptr(),
                   alpha=alpha.data_ptr(), b=b, k=k, n_seg=1,
                   agg=agg.data_ptr(), wsum=wsum.data_ptr())
-    _launch_edges(a, segments, (edge,), d, y)
-    LAUNCHES["ne_forces"] += 1
+    _launch_edges(a, segments, (edge,), d, nbr, "ne_forces")
     return agg[0], edge, wsum[0]
 
 
@@ -145,8 +184,7 @@ def ne_forces_gather(x, qid, nbr_idx, coef, alpha, *, segments, emit_edges):
                   nbr_idx=nbr_idx.data_ptr(), coef=coef.data_ptr(),
                   alpha=alpha.data_ptr(), b=b, k=k, n_seg=s,
                   agg=aggs.data_ptr(), wsum=wsums.data_ptr())
-    _launch_edges(a, segments, edges, d, x)
-    LAUNCHES["ne_forces_gather"] += 1
+    _launch_edges(a, segments, edges, d, x, "ne_forces_gather")
     return tuple(aggs.unbind(0)), edges, tuple(wsums.unbind(0))
 
 
