@@ -106,7 +106,28 @@ checks them:
       two runs of one step and of F_ITERS
       steps of ``scatter_fused=False`` and ``gather_fused=False`` from one
       state bit-identical; C2, ``fit(snapshot_every=100)`` returns 5
-      snapshots, the last the returned Y, and a state equal to (d)'s.
+      snapshots, the last the returned Y, and a state equal to (d)'s;
+  (k) the secondary algorithms and the session controls, with the phase's
+      wall time: ns-70k, ``negative_sampling_embed`` on X (k_hd 32, 8
+      negatives, dim_ld 2, NS_ITERS iterations): B7 at both of its shapes
+      and the segment sum against their plain versions, one iteration
+      kernels vs plain, then the run with the launch counters at 0 (B7
+      twice an iteration, the segment sum once, nothing else; Y finite;
+      iterations/s and the R_NX AUC on (d)'s subsample), B7's two shapes
+      and the segment sum timed; tsne-5k, ``exact_tsne`` on (d)'s 5,000-row
+      subsample (its analytic gradient against torch.autograd's of
+      ``kl_loss`` within TOL_GRAD_REL, TSNE_ITERS iterations, Y finite, KL
+      below its start, AUC); hierarchy-70k, ``extract_hierarchy`` on X at
+      dim_ld 4 with the alphas and depths of examples/hierarchy_graph.py
+      (B1-B3 only; clusters, edges and DBSCAN's time a level; DBSCAN on the
+      card bit for bit the CPU's on a quantised 5,000-row subsample of the
+      last snapshot); session-70k, every third row active, three waves of
+      ``fit(state=..., n_iter=SESSION_ITERS)`` with ``add_points`` of the
+      next residue class mod 3 between them, then ``remove_points`` of
+      class 0 and SESSION_REMOVE_ITERS steps (the audit all zero on every
+      state, exact counts on a copy with planted faults, recall@32 of the
+      active rows against ``exact_knn(active=)``, the removed rows' Y
+      unchanged, one step from wave 0's state kernels vs plain).
 
 B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
 2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
@@ -254,6 +275,16 @@ ACC_MIN = 0.95                 # one-shot 1-NN of the 8-D embedding
 # runtime-width path, 8 (the latents pipeline) and 32 (the dry run's
 # embed_1m) the compile-time widths
 C1_WIDTHS = (5, 8, 32)
+# phase (k): negative-sampling iterations (the JAX default), exact t-SNE
+# iterations on the 5,000-row subsample, the alpha sweep of
+# examples/hierarchy_graph.py (warmup and steps a level), and the session's
+# steps a wave and after the removal
+NS_ITERS, TSNE_ITERS = 750, 500
+HIER_ALPHAS, HIER_ITERS = (3.0, 1.0, 0.5), 300
+SESSION_ITERS, SESSION_REMOVE_ITERS = 300, 100
+# exact_tsne_grad against torch.autograd's gradient of kl_loss, of max|g|:
+# the same float32 quantities summed in another order over 5,000 columns
+TOL_GRAD_REL = 1e-5
 # B5 and B7: their entry points, and the kernel each route launches (by the
 # name the profiler gives it)
 EDGE_OPS = ("ne_forces", "ne_forces_gather")
@@ -391,7 +422,9 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import kernels
-    from repro_torch.core import funcsne, knn, nnd, threefry
+    from repro_torch.core import (baselines, funcsne, hierarchy, knn,
+                                  ld_kernels, nnd, threefry)
+    from repro_torch.core import dbscan as dbscan_mod
     from repro_torch.core.quality import embedding_quality
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
@@ -458,7 +491,7 @@ def main():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log(f"    {line.strip()}")
 
-    X_np, _ = synthetic.mnist_like(n=N, dim=DIM, seed=0)
+    X_np, y_np = synthetic.mnist_like(n=N, dim=DIM, seed=0)
     X = torch.from_numpy(X_np).to(dev)
     Xq = torch.round(X)            # integer features: exact distances
     cfg = funcsne.FuncSNEConfig(n_points=N, dim_hd=DIM)
@@ -2214,6 +2247,290 @@ def main():
         f"snapshots of {snaps[0].shape}, the last equal to the returned Y; "
         f"the state equals phase (d)'s bit for bit")
     del st_fit, snaps
+
+    # ---- (k) the secondary algorithms and the session controls -----------
+    t_k = time.perf_counter()
+    ns_cfg = baselines.NSConfig()
+    key7 = edges_key("ne_forces", 2)
+
+    # ns-70k: negative sampling on X.  B7 at both of its shapes and the
+    # segment sum, recorded from iteration 0 on a quantised copy of the
+    # start (edges exact) and on the start itself
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob, ns0 = baselines.ns_init(X, ns_cfg, dim_ld=2, hparams=hp, seed=0)
+    torch.cuda.synchronize()
+    t_ns_init = time.perf_counter() - t0
+    neg0 = baselines.ns_negatives(prob, 0, ns_cfg.n_negatives)
+    hp_ns = funcsne.default_schedule(0, NS_ITERS, hp)
+    ns_q = ns0._replace(Y=torch.round(ns0.Y * (256.0 / float(
+        ns0.Y.abs().max()))) / 4.0)
+    recq, recr = Recorder(funcsne), Recorder(funcsne)
+    baselines.ns_step(ns_cfg, prob, ns_q, neg0, hp_ns, 0, ops=recq.ops)
+    baselines.ns_step(ns_cfg, prob, ns0, neg0, hp_ns, 0, ops=recr.ops)
+    check(set(recr.calls) == {"ne_forces_0", "ne_forces_1", "segment_sum"},
+          f"NS iteration calls {set(recr.calls)}")
+    for key, call in recq.calls.items():
+        held(f"NS {key}", *call, True)
+    ns_err = {key: held(f"NS {key}", *call, False)
+              for key, call in recr.calls.items()}
+    s_k = baselines.ns_step(ns_cfg, prob, ns0, neg0, hp_ns, 0,
+                            ops=funcsne.KERNELS)
+    s_p = baselines.ns_step(ns_cfg, prob, ns0, neg0, hp_ns, 0,
+                            ops=funcsne.PLAIN)
+    for name in ("Y", "vel", "zhat"):
+        a, b = getattr(s_k, name), getattr(s_p, name)
+        check(max_err(a, b) <= TOL_STEP_REL * float(b.abs().max()),
+              f"NS iteration {name}: err {max_err(a, b)}")
+    check(float((s_k.gains != s_p.gains).float().mean()) < 1e-3,
+          "NS iteration gains differ on more than 0.1% of entries")
+    log(f"[k] ns-70k: B7 (attraction K {ns_cfg.k_hd}, repulsion K "
+        f"{ns_cfg.n_negatives}) and the segment sum against their plain "
+        f"versions (edges exact on the quantised start, the segment sum bit "
+        f"for bit the CPU's); one iteration kernels vs plain: Y/vel/zhat "
+        f"within {TOL_STEP_REL}")
+    del s_k, s_p, ns_q, recq
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Y_ns = baselines.negative_sampling_embed(X, cfg=ns_cfg, dim_ld=2,
+                                             n_iter=NS_ITERS, hparams=hp,
+                                             seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_ns = time.perf_counter() - t0
+    launches_ns = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+    check(launches_ns == {key7: 2 * NS_ITERS, "segment_sum": NS_ITERS},
+          f"ns-70k launched {launches_ns}")
+    check(bool(torch.isfinite(Y_ns).all()), "ns-70k: Y not finite")
+    auc_ns = float(embedding_quality(X[sub], Y_ns[sub]))
+    its_ns = NS_ITERS / (t_ns - t_ns_init)
+    log(f"[k] ns-70k: negative_sampling_embed(n_iter={NS_ITERS}) in "
+        f"{t_ns:.2f}s (phase 1, exact KNN and perplexity, {t_ns_init:.2f}s "
+        f"alone): {its_ns:.1f} iterations/s; launches {launches_ns}; Y "
+        f"finite; R_NX AUC on {AUC_ROWS} rows {auc_ns:.4f} (main path "
+        f"{auc:.4f})")
+    for i, label in ((0, f"attraction_k{ns_cfg.k_hd}"),
+                     (1, f"repulsion_k{ns_cfg.n_negatives}")):
+        _, a7, kw7 = recr.calls[f"ne_forces_{i}"]
+        o7 = ne_forces_ref(*a7, **kw7)
+        entry(f"{key7}_ns_{label}", "src/repro_torch/csrc/ne_forces.cu",
+              "src/repro/kernels/ne_forces/kernel.py:70",
+              lambda: ne_forces(*a7, **kw7), lambda: ne_forces_ref(*a7, **kw7),
+              50, nbytes(*a7, *o7), (12.0 + 4.0 * 2) * a7[2].numel(),
+              ns_err[f"ne_forces_{i}"], launches_ns[key7] // 2, tag="[k]",
+              graphed=True)
+    _, (ix, vx, nx), _ = recr.calls["segment_sum"]
+    out_s = torch.empty((nx, vx.shape[1]), device=dev)
+    entry("segment_sum_ns", "src/repro_torch/csrc/segment_sum.cu",
+          "src/repro/core/baselines.py:137",
+          lambda: segment_sum(ix, vx, nx), lambda: segment_sum_ref(ix, vx, nx),
+          20, nbytes(ix, vx, out_s), 1.0 * vx.numel(), ns_err["segment_sum"],
+          launches_ns["segment_sum"],
+          library=lambda: torch.zeros_like(out_s).index_add_(0, ix, vx),
+          tag="[k]", graphed=True)
+    log(f"    (B7's rows: one launch of each shape an iteration, "
+        f"{launches_ns[key7]} in all; the segment sum over {ix.shape[0]} "
+        f"rows of {vx.shape[1]} floats, {nx} sums)")
+    del prob, ns0, recr, Y_ns, ix, vx, out_s, o7
+
+    # tsne-5k: exact t-SNE on (d)'s subsample; its analytic gradient
+    # against torch.autograd's of kl_loss
+    Xs = X[sub]
+    P = baselines.exact_p_matrix(Xs, 30.0)
+    one = torch.tensor(1.0, device=dev)
+    Yg = threefry.normal(threefry.prng_key(1), (AUC_ROWS, 2), device=dev)
+    g_an = baselines.exact_tsne_grad(Yg, P, one)
+    y_g = Yg.clone().requires_grad_(True)
+    g_ad = torch.autograd.grad(ld_kernels.kl_loss(P, y_g, one), y_g)[0]
+    g_rel = max_err(g_an, g_ad) / float(g_ad.abs().max())
+    check(g_rel <= TOL_GRAD_REL, f"tsne-5k: gradient error {g_rel}")
+    Y0 = threefry.normal(threefry.prng_key(0), (AUC_ROWS, 2), device=dev) \
+        * 1e-2
+    kl0 = float(ld_kernels.kl_loss(P, Y0, one))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Y_ts = baselines.exact_tsne(P=P, n_iter=TSNE_ITERS, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_ts = time.perf_counter() - t0
+    check(not any(kernels.LAUNCHES.values()), "tsne-5k launched a kernel")
+    check(bool(torch.isfinite(Y_ts).all()), "tsne-5k: Y not finite")
+    kl1 = float(ld_kernels.kl_loss(P, Y_ts, one))
+    check(kl1 < kl0, f"tsne-5k: KL {kl1} not below its start {kl0}")
+    auc_ts = float(embedding_quality(Xs, Y_ts))
+    log(f"[k] tsne-5k: exact_tsne_grad against autograd of kl_loss, max "
+        f"error {g_rel:.2e} of max|g| (tolerance {TOL_GRAD_REL}); "
+        f"{TSNE_ITERS} iterations in {t_ts:.2f}s = "
+        f"{TSNE_ITERS / t_ts:.1f} iterations/s (dense products and "
+        f"elementwise ops, no kernel of the port); KL {kl0:.4f} -> "
+        f"{kl1:.4f}; R_NX AUC {auc_ts:.4f}")
+    del P, Yg, g_an, g_ad, y_g, Y_ts
+
+    # hierarchy-70k: the alpha sweep at dim_ld 4 on X, DBSCAN timed per
+    # level; then DBSCAN on the card against the CPU on a quantised
+    # subsample of the last snapshot
+    db_ms, snaps_h = [], []
+
+    def timed_dbscan(Y, eps, min_pts):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lab = dbscan_mod.dbscan(Y, eps, min_pts)
+        torch.cuda.synchronize()
+        db_ms.append((time.perf_counter() - t) * 1e3)
+        snaps_h.append(Y)
+        return lab
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = hierarchy.extract_hierarchy(
+        X, HIER_ALPHAS, warmup_iters=HIER_ITERS, iters_per_level=HIER_ITERS,
+        hparams=hp, dbscan_fn=timed_dbscan, device=dev)
+    torch.cuda.synchronize()
+    t_h = time.perf_counter() - t0
+    launches_h = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+    cfg_h = funcsne.FuncSNEConfig(n_points=N, dim_hd=DIM, dim_ld=4)
+    want_h = {gather_key(DIM), gather_key(4),
+              merge_key("knn_merge_cand", DIM, "hd", cfg_h.k_hd,
+                        c_hd_of(cfg_h)),
+              merge_key("knn_merge_cand", 4, "ld", cfg_h.k_ld, c_ld),
+              "ne_forces_scatter"}
+    check(set(launches_h) == want_h, f"hierarchy-70k launched {launches_h}")
+    steps_h = HIER_ITERS * (1 + len(HIER_ALPHAS))
+    check(launches_h["ne_forces_scatter"] == steps_h,
+          f"hierarchy-70k: B3 {launches_h['ne_forces_scatter']} launches")
+    check(all(lv.n_clusters > 0 for lv in graph.levels),
+          "hierarchy-70k: a level without clusters")
+    check(all(bool(torch.isfinite(y_).all()) for y_ in snaps_h),
+          "hierarchy-70k: a snapshot not finite")
+    log(f"[k] hierarchy-70k: extract_hierarchy(alphas={HIER_ALPHAS}, "
+        f"{HIER_ITERS} warmup + {HIER_ITERS} a level, dim_ld 4) in "
+        f"{t_h:.2f}s ({steps_h} steps); launches {launches_h}; clusters per "
+        f"level {[lv.n_clusters for lv in graph.levels]}, noise "
+        f"{[int((lv.labels < 0).sum()) for lv in graph.levels]}, "
+        f"{len(graph.edges)} edges; DBSCAN "
+        + ", ".join(f"{ms:.0f} ms" for ms in db_ms) + " a level")
+    # a quarter grid with |y| <= 256 keeps every squared distance exact in
+    # float32; scaled by the 99th percentile of |y|, so that a few far
+    # rows do not fold the rest into a few cells, and clamped
+    y_last = snaps_h[-1][sub]
+    q99 = float(torch.quantile(y_last.abs().flatten(), 0.99))
+    y_last = torch.round((y_last * (1024.0 / q99)).clamp(-1024.0, 1024.0)) \
+        / 4.0
+    eps_q = hierarchy.select_eps(y_last.cpu().numpy(), 0.02)
+    lab_card = dbscan_mod.dbscan(y_last, eps_q, 5)
+    lab_cpu = dbscan_mod.dbscan(y_last.cpu(), eps_q, 5)
+    check(torch.equal(lab_card.cpu(), lab_cpu),
+          "hierarchy-70k: DBSCAN on the card differs from the CPU's")
+    _, k_q = dbscan_mod.relabel_compact(lab_card)
+    check(k_q > 1, f"hierarchy-70k: the quantised subsample has {k_q} "
+          "cluster(s), too few for the comparison to test anything")
+    log(f"    DBSCAN of the last snapshot's {AUC_ROWS} subsample rows on a "
+        f"quarter grid (eps {eps_q:.4g}, {k_q} clusters, "
+        f"{int((lab_card < 0).sum())} noise): the card's labels equal the "
+        f"CPU's bit for bit")
+    del graph, snaps_h, y_last, lab_card, lab_cpu
+
+    # session-70k: a third of the rows (every third) active, three waves of
+    # fit(state=...) with add_points between them, then remove_points
+    hold = lambda it, n_iter, h: h      # noqa: E731
+    rows_all = torch.arange(N, device=dev)
+    labels_all = torch.from_numpy(y_np).to(dev)
+
+    def active_recall(s):
+        rows_a = torch.nonzero(s.active)[:, 0]
+        rows_a = rows_a[::max(1, rows_a.shape[0] // RECALL_ROWS)]
+        true_a, _ = knn.exact_knn(X, cfg.k_hd, active=s.active, rows=rows_a)
+        est = s.hd_idx[rows_a].long()
+        hit = (est[:, :, None] == true_a.long()[:, None, :]).any(-1)
+        return float(hit.float().mean())
+
+    def audit_counts(s):
+        return {f: int(v) for f, v in
+                funcsne.audit_state(s, cfg, X)._asdict().items()}
+    clean = {f: 0 for f in funcsne.AuditResult._fields}
+    kernels.reset_launches()
+    st_s = funcsne.init_state(X, cfg, seed=0, active=rows_all % 3 == 0,
+                              perplexity=hp.perplexity, device=dev)
+    st_w0, waves = None, []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_s, _ = funcsne.fit(X, cfg=cfg, n_iter=SESSION_ITERS, chunk_size=CHUNK,
+                              hparams=hp, schedule=hold, state=st_s,
+                              validate=w == 0, device=dev)
+        torch.cuda.synchronize()
+        sps_s = SESSION_ITERS / (time.perf_counter() - t0)
+        check(audit_counts(st_s) == clean,
+              f"session wave {w}: audit {audit_counts(st_s)}")
+        check(bool(torch.isfinite(st_s.Y).all()), f"wave {w}: Y not finite")
+        waves.append((int(st_s.active.sum()), sps_s, active_recall(st_s)))
+        if w == 0:
+            st_w0 = st_s
+        if w < 2:
+            st_s = funcsne.add_points(
+                st_s, torch.nonzero(rows_all % 3 == w + 1)[:, 0],
+                threefry.prng_key(w))
+    launches_s = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+    check(set(launches_s) == main_kernels,
+          f"session-70k launched {launches_s}")
+    cls0 = torch.nonzero(labels_all == 0)[:, 0]
+    st_s = funcsne.remove_points(st_s, cls0)
+    y_rm = st_s.Y[cls0].clone()
+    st_s, _ = funcsne.fit(X, cfg=cfg, n_iter=SESSION_REMOVE_ITERS,
+                          chunk_size=CHUNK, hparams=hp, schedule=hold,
+                          state=st_s, validate=False, device=dev)
+    check(torch.equal(st_s.Y[cls0], y_rm), "removed rows moved")
+    check(audit_counts(st_s) == clean, "session: audit after the removal")
+    check(bool(torch.isfinite(st_s.Y).all()), "session: Y not finite")
+    rec_rm = active_recall(st_s)
+    for w, (n_act, sps_s, rec_w) in enumerate(waves):
+        log(f"[k] session-70k wave {w}: {n_act} active rows, "
+            f"{SESSION_ITERS} steps at {sps_s:.1f} steps/s, recall@"
+            f"{cfg.k_hd} of active rows against exact_knn(active=) "
+            f"{rec_w:.4f}, audit all zero")
+    log(f"    after remove_points of class 0 ({cls0.shape[0]} rows) and "
+        f"{SESSION_REMOVE_ITERS} steps: {int(st_s.active.sum())} active, the "
+        f"removed rows' Y unchanged, recall {rec_rm:.4f}, audit all zero; "
+        f"launches over the waves {launches_s}")
+    # wave 0's state (two thirds of the rows inactive): one step on a
+    # quantised copy through the kernels against through the plain versions
+    stq_s = forced(st_w0._replace(Y=torch.round(st_w0.Y * (256.0 / float(
+        st_w0.Y.abs().max()))) / 4.0))
+    recq = Recorder(funcsne)
+    funcsne.funcsne_step(cfg, stq_s, Xq, hp, ops=recq.ops)
+    for key, call in recq.calls.items():
+        held(f"session {key}", *call, True)
+    st_k = funcsne.funcsne_step(cfg, stq_s, Xq, hp, ops=funcsne.KERNELS)
+    st_p = funcsne.funcsne_step(cfg, stq_s, Xq, hp, ops=funcsne.PLAIN)
+    for name in ("hd_idx", "hd_d", "ld_idx", "ld_d", "new_flag", "active",
+                 "step", "ema_new_frac"):
+        check(torch.equal(getattr(st_k, name), getattr(st_p, name)),
+              f"session step {name} differs")
+    for name in ("Y", "vel", "zhat"):
+        a, b = getattr(st_k, name), getattr(st_p, name)
+        check(max_err(a, b) <= TOL_STEP_REL * float(b.abs().max()),
+              f"session step {name}: err {max_err(a, b)}")
+    check(float((st_k.gains != st_p.gains).float().mean()) < 1e-3,
+          "session step gains differ on more than 0.1% of entries")
+    # planted faults on a copy: one id out of range, one duplicate, one NaN
+    act_rows = torch.nonzero(st_s.active)[:, 0]
+    r1, r2, r3 = (int(act_rows[i]) for i in (0, 1, 2))
+    bad_hd, bad_ld, bad_y = (st_s.hd_idx.clone(), st_s.ld_idx.clone(),
+                             st_s.Y.clone())
+    bad_hd[r1, 0] = N + 5
+    bad_ld[r2, 0] = bad_ld[r2, 1]
+    bad_y[r3, 0] = float("nan")
+    planted = audit_counts(st_s._replace(hd_idx=bad_hd, ld_idx=bad_ld,
+                                         Y=bad_y))
+    check(planted == dict(clean, hd_oob=1, ld_dup=1, y_nonfinite=1),
+          f"session: audit of the planted faults {planted}")
+    n_off = int((~st_w0.active).sum())
+    log(f"[k] session-70k: one step from wave 0's state ({n_off} inactive "
+        f"rows) kernels vs plain on quantised inputs: "
+        f"ids/distances/flags exact, Y/vel/zhat within {TOL_STEP_REL}; each "
+        f"kernel held; audit of a copy with planted faults {planted}")
+    del st_s, st_w0, stq_s, st_k, st_p, recq, bad_hd, bad_ld, bad_y
+    log(f"[k] phase (k) took {time.perf_counter() - t_k:.1f}s")
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 

@@ -26,6 +26,10 @@ and the JAX package draw the same candidates and negatives from the same
 state, and ``init_state(seed=s)`` draws the JAX package's start for
 ``PRNGKey(s)``: the same lists and key, Y within ``normal``'s tolerance.
 
+A session between chunks uses ``add_points``, ``remove_points``,
+``rescale_embedding`` and ``audit_state``; ``fit`` drives the chunks, with
+its ``callback``, ``early_stop`` and ``auto_rescale``.
+
 PyTorch runs eagerly, so the chunk runner (``make_chunked_step``) is a
 Python loop over steps; the gate's branch and the reverse-table cadence are
 one host sync per step.  On the threefry path that sync also fetches the
@@ -35,6 +39,7 @@ key words, so the scalar key chain (``fold_in``, ``split``, the gate's
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -612,6 +617,12 @@ def init_state(X, cfg: FuncSNEConfig, *, seed: int = 0, init: str = "pca",
         rev_step=scalar(-cfg.rev_refresh, torch.int32))
 
 
+def make_step(cfg: FuncSNEConfig):
+    """``step(st, X, hp) -> st``: one :func:`funcsne_step` of ``cfg`` on the
+    kernels (the JAX package's jitted step; PyTorch runs it eagerly)."""
+    return functools.partial(funcsne_step, cfg)
+
+
 # --------------------------------------------------------------------------
 # Chunk runner and fit
 
@@ -709,27 +720,140 @@ def default_schedule(it, n_iter: int, hp: HParams) -> HParams:
     return hp._replace(exaggeration=ex, momentum=mom, lr=lr)
 
 
+# --------------------------------------------------------------------------
+# Session controls: rescale, add/remove points, audit
+
+
+def rescale_embedding(st: FuncSNEState, factor: float = 0.01):
+    """The paper's 'implosion button': rescale Y so gradients matter again."""
+    return st._replace(Y=st.Y * factor, vel=st.vel * 0.0)
+
+
+def add_points(st: FuncSNEState, ids, key) -> FuncSNEState:
+    """Activate rows (dynamic datasets); the caller updates X first.
+
+    Each row gets the fresh HD list ``(id + 1 + init_knn_idx(key, len(ids),
+    n - 1, k)) % n`` (the JAX package's lists for the same threefry
+    ``key``), distances +inf and its new flag set, so the iterative KNN
+    refreshes it lazily.
+    """
+    dev = st.Y.device
+    ids = torch.as_tensor(ids, dtype=torch.int32).to(dev)
+    n = st.active.shape[0]
+    fresh = (ids[:, None] + 1 + knn.init_knn_idx(
+        key, ids.shape[0], n - 1, st.hd_idx.shape[1], device=dev)) % n
+    rows = ids.long()
+    return st._replace(
+        active=st.active.index_fill(0, rows, True),
+        hd_idx=st.hd_idx.index_copy(0, rows, fresh.to(torch.int32)),
+        hd_d=st.hd_d.index_fill(0, rows, torch.inf),
+        new_flag=st.new_flag.index_fill(0, rows, True))
+
+
+def remove_points(st: FuncSNEState, ids) -> FuncSNEState:
+    """Deactivate rows: they stop moving and stop acting on the others."""
+    rows = torch.as_tensor(ids).to(st.Y.device).long()
+    return st._replace(active=st.active.index_fill(0, rows, False),
+                       new_flag=st.new_flag.index_fill(0, rows, False))
+
+
+class AuditResult(NamedTuple):
+    """Violation counts from :func:`audit_state`: 0-dim int32 tensors, all
+    zero for a healthy state."""
+    hd_oob: Any         # hd_idx entries outside [0, n) (mod SENTINEL)
+    ld_oob: Any         # ld_idx entries outside [0, n) (mod SENTINEL)
+    rev_oob: Any        # rev_idx entries outside [0, n) (mod SENTINEL)
+    hd_dup: Any         # per-row duplicate hd neighbours (mod SENTINEL)
+    ld_dup: Any         # per-row duplicate ld neighbours (mod SENTINEL)
+    hd_sentinel: Any    # SENTINEL hd slots whose distance is not +inf
+    y_nonfinite: Any    # non-finite Y entries on active rows
+    x_nonfinite: Any    # non-finite X entries on active rows (0 if no X)
+
+
+def _count(mask):
+    return mask.sum(dtype=torch.int32)
+
+
+def audit_state(st: FuncSNEState, cfg: FuncSNEConfig,
+                X=None) -> AuditResult:
+    """Invariant audit of a state on its device: list and reverse-edge ids
+    in [0, n) (SENTINEL aside), no duplicate within a row (sort and compare
+    neighbours), SENTINEL HD slots at +inf distance (a finite one would
+    resurrect a phantom neighbour), and finite Y (and X, when given) on
+    active rows.  Nothing is read back: the caller reads the counts."""
+    n = cfg.n_points
+    zero = torch.zeros((), dtype=torch.int32, device=st.Y.device)
+
+    def oob(idx):
+        if idx.ndim != 2 or idx.shape[1] == 0:
+            return zero
+        return _count((idx != SENTINEL) & ((idx < 0) | (idx >= n)))
+
+    def dups(idx):
+        if idx.ndim != 2 or idx.shape[1] < 2:
+            return zero
+        s = torch.sort(idx, dim=1).values
+        return _count((s[:, 1:] == s[:, :-1]) & (s[:, 1:] != SENTINEL))
+
+    act_col = st.active[:, None]
+    return AuditResult(
+        hd_oob=oob(st.hd_idx), ld_oob=oob(st.ld_idx), rev_oob=oob(st.rev_idx),
+        hd_dup=dups(st.hd_idx), ld_dup=dups(st.ld_idx),
+        hd_sentinel=_count((st.hd_idx == SENTINEL) & ~torch.isinf(st.hd_d)),
+        y_nonfinite=_count(~torch.isfinite(st.Y) & act_col),
+        x_nonfinite=zero if X is None
+        else _count(~torch.isfinite(X) & act_col))
+
+
+# --------------------------------------------------------------------------
+# fit
+
+
+def _host_only(schedule, n_iter: int) -> bool:
+    """Whether ``schedule`` needs a value on the host: it is called once
+    with ``it`` and every hparams field as 0-dim meta tensors (shapes, no
+    data), and one that reads a value (``int(it)``, ``bool``, ``.item()``)
+    raises there.  The counterpart of the JAX ``fit``'s trace with an
+    abstract ``it``."""
+    def meta(dtype):
+        return torch.zeros((), dtype=dtype, device="meta")
+    hp = HParams(*(meta(torch.float32) for _ in HParams._fields))
+    try:
+        schedule(meta(torch.int32), n_iter, hp)
+    except RuntimeError as e:
+        if "meta tensor" not in str(e):
+            raise
+        return True
+    return False
+
+
 def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
         hparams: HParams = None, schedule=None, init: str = "pca",
         chunk_size: int = None, state: FuncSNEState = None,
         validate: bool = True, device="cuda", snapshot_every: int = 0,
         callback=None, early_stop=None, auto_rescale=None, resilience=None,
         resume_from=None):
-    """Embed ``X``: ``init_state`` then chunks of ``chunk_size`` steps.
+    """Embed ``X``: ``init_state`` (or ``state``, whose ``n_iter`` then
+    counts further steps) then chunks of ``chunk_size`` steps.
 
     Returns ``(state, snapshots)`` as the JAX ``fit``: ``snapshots`` is
     the list of numpy (n, d) copies of Y after every step whose count is
     a multiple of ``snapshot_every`` (empty when it is 0), drained from
-    each chunk's ring.  ``callback``, ``early_stop``, ``auto_rescale``,
-    ``resilience`` and ``resume_from`` are not ported yet and raise
-    ``NotImplementedError``.
+    each chunk's ring.
+
+    ``callback(it, st)`` runs after each chunk with its last step's index
+    (``chunk_size`` defaults to 1 when one is given).  After each chunk
+    the EMA'd mean displacement of active rows, ``metrics.disp_ema``,
+    normalised by its saturation ``1 - 0.9**T``, is compared with
+    ``early_stop`` (below it: stop) and then with ``auto_rescale`` (below
+    it, while steps remain: :func:`rescale_embedding`).
+
+    A schedule that needs ``it`` on the host (``int(it)``, a branch on it)
+    runs in the per-step host loop instead, as the JAX ``fit`` routes one
+    that cannot be traced; ``state``, ``resilience`` and ``resume_from``
+    raise ``ValueError`` with such a schedule.  ``resilience`` and
+    ``resume_from`` are not ported yet and raise ``NotImplementedError``.
     """
-    unported = {"callback": callback, "early_stop": early_stop,
-                "auto_rescale": auto_rescale, "resilience": resilience,
-                "resume_from": resume_from}
-    given = [k for k, v in unported.items() if v]
-    if given:
-        raise NotImplementedError(f"fit options not ported yet: {given}")
     dev = resolve_device(device)
     X = torch.as_tensor(X, dtype=torch.float32).to(dev).contiguous()
     if cfg is None:
@@ -741,7 +865,22 @@ def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
     if schedule is None:
         schedule = default_schedule
     if chunk_size is None:
-        chunk_size = min(50, max(1, n_iter))
+        chunk_size = 1 if callback is not None else min(50, max(1, n_iter))
+    host_only = _host_only(schedule, n_iter)
+    if host_only and (resilience is not None or resume_from is not None
+                      or state is not None):
+        raise ValueError(
+            "resilience / resume_from / state require a traceable schedule "
+            "(the per-step host-loop fallback does not support them); use "
+            "a schedule evaluable with a traced `it`")
+    unported = {"resilience": resilience, "resume_from": resume_from}
+    given = [k for k, v in unported.items() if v is not None]
+    if given:
+        raise NotImplementedError(f"fit options not ported yet: {given}")
+    if host_only:
+        return _fit_host_loop(X, cfg, n_iter, seed, hparams, schedule, init,
+                              snapshot_every, callback, early_stop,
+                              auto_rescale)
     st = state if state is not None else init_state(
         X, cfg, seed=seed, init=init, perplexity=hparams.perplexity,
         validate=False, device=dev)
@@ -758,5 +897,46 @@ def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
         if snapshot_every:
             taken = int(metrics.n_snapshots)
             snapshots.extend(list(snaps[:taken].cpu().numpy()))
+        if callback is not None:
+            callback(it + T - 1, st)
         it += T
+        if early_stop is not None or auto_rescale is not None:
+            # in steady-state per-step units whatever T (at T = 1 the
+            # factor is the single step's weight 0.1: the host loop's
+            # act_disp)
+            disp = float(metrics.disp_ema) / (1.0 - _METRICS_DECAY ** T)
+            if early_stop is not None and disp < early_stop:
+                break
+            if auto_rescale is not None and it < n_iter \
+                    and disp < auto_rescale:
+                st = rescale_embedding(st)
+    return st, snapshots
+
+
+def _fit_host_loop(X, cfg, n_iter, seed, hparams, schedule, init,
+                   snapshot_every, callback, early_stop=None,
+                   auto_rescale=None):
+    """The per-step loop for schedules that need a Python ``it``."""
+    st = init_state(X, cfg, seed=seed, init=init,
+                    perplexity=hparams.perplexity, validate=False,
+                    device=X.device)
+    step = make_step(cfg)
+    snapshots = []
+    for it in range(n_iter):
+        st = step(st, X, schedule(it, n_iter, hparams))
+        if snapshot_every and (it + 1) % snapshot_every == 0:
+            snapshots.append(st.Y.cpu().numpy())
+        if callback is not None:
+            callback(it, st)
+        if early_stop is not None or auto_rescale is not None:
+            # the quantity fit derives from ChunkMetrics at T = 1
+            act = st.active.float()
+            n_act = max(float(act.sum()), 1.0)
+            act_disp = float((st.vel.abs() * act[:, None]).sum()) \
+                / (n_act * cfg.dim_ld)
+            if early_stop is not None and act_disp < early_stop:
+                break
+            if auto_rescale is not None and it + 1 < n_iter \
+                    and act_disp < auto_rescale:
+                st = rescale_embedding(st)
     return st, snapshots

@@ -67,6 +67,14 @@ def embedding_quality(X, Y, kmax: int = 64):
     return rnx_auc(rnx_curve(emb_idx, true_idx, X.shape[0]))
 
 
+def embedding_rnx_curve(X, Y, kmax: int = 64):
+    """R_NX(K), K = 1..kmax, of LD neighbourhoods against HD ones."""
+    kmax = min(kmax, X.shape[0] - 2)
+    true_idx, _ = exact_knn(X, kmax)
+    emb_idx, _ = exact_knn(Y, kmax)
+    return rnx_curve(emb_idx, true_idx, X.shape[0])
+
+
 def _xla_mean(x):
     """``jnp.mean`` as XLA computes it: the float32 sum times
     float32(1 / count), not a division."""

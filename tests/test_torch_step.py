@@ -189,18 +189,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still unported raises: the fit/CLI options; every flag
-    setting of the config, ``cand_fused=False`` included, constructs."""
+    """What is still unported raises: fit's resilience options (the
+    session controls callback / early_stop / auto_rescale are ported and
+    run) and the CLI's; every flag setting of the config,
+    ``cand_fused=False`` included, constructs."""
     for kw in (dict(gather_fused=False), dict(scatter_fused=False),
                dict(merge_fused=False), dict(c_hd_rev=2, rev_refresh=1),
                dict(cand_fused=False), dict(c_hd_rev=2, cand_fused=False)):
         cfg = tf.FuncSNEConfig(n_points=10, dim_hd=3, **kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
     X = np.zeros((20, 3), np.float32)
-    for kw in (dict(callback=print), dict(early_stop=0.1), dict(auto_rescale=0.1),
-               dict(resilience=object()), dict(resume_from="ckpt")):
+    cfg = tf.FuncSNEConfig(n_points=20, dim_hd=3, k_hd=8, k_ld=4)
+    for kw in (dict(resilience=object()), dict(resume_from="ckpt")):
         with pytest.raises(NotImplementedError):
-            tf.fit(X, device="cpu", **kw)
+            tf.fit(X, cfg=cfg, device="cpu", **kw)
+    for kw in (dict(callback=lambda it, st: None), dict(early_stop=0.1),
+               dict(auto_rescale=0.1)):
+        st, _ = tf.fit(X, cfg=cfg, n_iter=2, device="cpu", **kw)
+        assert int(st.step) >= 1
     for argv in (["--devices", "2"], ["--num-processes", "2"],
                  ["--checkpoint-dir", "ckpt"], ["--audit-every", "3"]):
         with pytest.raises(NotImplementedError):
