@@ -128,6 +128,29 @@ checks them:
       state, exact counts on a copy with planted faults, recall@32 of the
       active rows against ``exact_knn(active=)``, the removed rows' Y
       unchanged, one step from wave 0's state kernels vs plain).
+  (l) resilience-70k: ``fit`` at the main path's config (ITERS steps in
+      chunks of CHUNK) under a ``ResiliencePolicy`` in a temporary
+      checkpoint directory, each run with its own: a clean run
+      (checkpoint_every=2, audit_every=5, sticky_fallback off) bit for bit
+      phase (d)'s state, no rollback, no demotion, the main path's kernels
+      launched, steps/s beside a plain ``fit`` of this call and a policy
+      run without checkpoints (also phase (d)'s state); a NaN chunk
+      (``NaNChunk`` at chunk L_NAN_CHUNK): one rollback, Y finite, the
+      backoff logged; a preemption at chunk L_PREEMPT_CHUNK, then
+      ``fit(resume_from=)`` bit for bit phase (d)'s state; the newest
+      boundary damaged (``CorruptShard``): ``python -m
+      repro_torch.checkpoint.verify`` reports it CORRUPT and exits 1, the
+      resume falls back one boundary with a ``checkpoint_fallback`` event
+      and still ends bit for bit on phase (d)'s state; a
+      ``KernelLaunchFault("knn_merge", at_launch=L_FAULT_LAUNCH)`` under
+      sticky_fallback: the fault surfaces from ``fit`` with one
+      ``kernel_fault`` event, nothing is demoted and no plain version runs
+      on the card (B2 launched exactly L_FAULT_LAUNCH times), and
+      ``fit(resume_from=)`` of its last boundary launches every kernel of
+      the main path and ends bit for bit on phase (d)'s state; the
+      save's host ms, the bytes of a checkpoint, wait(), restore and verify
+      ms; and ``repro_torch.examples.dynamic_stream`` on X with
+      session-70k's waves (recall of the active rows a wave, events).
 
 B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
 2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
@@ -282,6 +305,10 @@ C1_WIDTHS = (5, 8, 32)
 NS_ITERS, TSNE_ITERS = 750, 500
 HIER_ALPHAS, HIER_ITERS = (3.0, 1.0, 0.5), 300
 SESSION_ITERS, SESSION_REMOVE_ITERS = 300, 100
+# phase (l): the chunk a NaN poisons, the chunk boundary a preemption (and a
+# damaged checkpoint) hits, and the guarded B2 launch a kernel fault
+# replaces (about two fifths into the run)
+L_NAN_CHUNK, L_PREEMPT_CHUNK, L_FAULT_LAUNCH = 3, 6, 300
 # exact_tsne_grad against torch.autograd's gradient of kl_loss, of max|g|:
 # the same float32 quantities summed in another order over 5,000 columns
 TOL_GRAD_REL = 1e-5
@@ -413,6 +440,279 @@ class Recorder:
             return f
         self.ops = funcsne.Ops(*[rec(name, fn) for name, fn in
                                  zip(funcsne.Ops._fields, funcsne.KERNELS)])
+
+
+def resilience_phase(X, labels, cfg, hp, st_d, sps_d, recall, main_kernels,
+                     hd_key, ld_key, card):
+    """Phase (l), resilience-70k (see the module docstring): ``st_d`` is
+    phase (d)'s final state, ``sps_d`` its steps/s, ``recall`` its recall
+    of HD lists on a fixed subsample."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import funcsne
+    from repro_torch.core.resilience import ResiliencePolicy
+    from repro_torch.examples import dynamic_stream
+    from repro_torch.kernels import fallback
+    from repro_torch.runtime import faults
+
+    t_l = time.perf_counter()
+    dev = X.device
+    check(fallback.n_events() == 0 and fallback.demotions() == {},
+          f"a kernel family was demoted before phase (l): {fallback.events()}")
+    b2_keys = (hd_key["knn_merge_cand"], ld_key["knn_merge_cand"])
+    src = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip-smoke-ck-")
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def policy(name, **kw):
+        kw.setdefault("sticky_fallback", False)
+        return ResiliencePolicy(checkpoint_dir=os.path.join(root, name),
+                                checkpoint_every=2, **kw)
+
+    def timed_fit(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = funcsne.fit(X, cfg=cfg, n_iter=ITERS, chunk_size=CHUNK,
+                             hparams=hp, device=dev, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def unexpected(pol, allowed=("straggler", "early_checkpoint")):
+        return [e for e in pol.events if e["kind"] not in allowed]
+
+    try:
+        # the clean run, beside a plain fit of this call and a policy run
+        # without checkpoints (its clone, read and audit alone; all three
+        # with init)
+        _, t_plain = timed_fit()
+        st_a, t_nock = timed_fit(resilience=ResiliencePolicy(
+            audit_every=5, sticky_fallback=False))
+        check(same(st_a, st_d), "the policy run without checkpoints "
+              "differs from phase (d)'s state")
+        del st_a
+        pol_c = policy("clean", audit_every=5)
+        kernels.reset_launches()
+        st_c, t_clean = timed_fit(resilience=pol_c)
+        launches_c = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+        check(same(st_c, st_d), "resilience-70k: the clean policy run "
+              "differs from phase (d)'s state")
+        check(not unexpected(pol_c), f"clean run events {pol_c.events}")
+        check(fallback.demotions() == {}, "clean run demoted a kernel")
+        check(set(launches_c) == main_kernels,
+              f"clean run launched {launches_c}")
+        steps_c = Checkpointer(pol_c.checkpoint_dir).all_steps()
+        check(steps_c and steps_c[-1] == ITERS, f"clean run steps {steps_c}")
+        log(f"[l] clean run: fit(resilience=ResiliencePolicy(checkpoint_"
+            f"every=2, audit_every=5)) bit for bit phase (d)'s state; "
+            f"{len(pol_c.events)} events ({[e['kind'] for e in pol_c.events]}),"
+            f" no demotion; committed steps {steps_c} (keep_last 3); "
+            f"launches {launches_c}")
+        log(f"[l] steps/s: policy run {ITERS / t_clean:.1f}, without its "
+            f"checkpoints {ITERS / t_nock:.1f}, plain fit "
+            f"{ITERS / t_plain:.1f} (all with init_state), phase (d)'s "
+            f"chunks {sps_d:.1f}; the policy's cost {t_clean - t_plain:+.3f}s"
+            f" over {ITERS} steps, {t_nock - t_plain:+.3f}s without its "
+            f"checkpoints ({card})")
+
+        # what a checkpoint costs at n = 70,000: save() on the host (the
+        # copy to the host; the write runs on a thread), the bytes, the
+        # thread's write (wait), a verified restore onto the card, one
+        # step's verification
+        ck = Checkpointer(os.path.join(root, "timing"), keep_last=2)
+        meta = {"lr_scale": 1.0, "ex_scale": 1.0}
+        save_ms, wait_ms, rest_ms, ver_ms = [], [], [], []
+        for r in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(ITERS + r, funcsne._checkpoint_state(st_c), metadata=meta)
+            t1 = time.perf_counter()
+            ck.wait()
+            t2 = time.perf_counter()
+            save_ms.append((t1 - t0) * 1e3)
+            wait_ms.append((t2 - t1) * 1e3)
+            t0 = time.perf_counter()
+            got, _, fbs = ck.restore_verified(st_c)
+            torch.cuda.synchronize()
+            rest_ms.append((time.perf_counter() - t0) * 1e3)
+            check(same(got, st_c) and not fbs, "restore differs")
+            t0 = time.perf_counter()
+            ck.verify_step(ITERS + r)
+            ver_ms.append((time.perf_counter() - t0) * 1e3)
+        d_last = ck.dir / f"step_{ITERS + 4:010d}"
+        n_bytes = sum(f.stat().st_size for f in d_last.iterdir())
+        npz = (d_last / "arrays.npz").stat().st_size
+        med = statistics.median
+        log(f"[l] checkpoint at n={N}: save {med(save_ms):.2f} ms on the "
+            f"host (median of 5, the write async), {n_bytes} bytes a step "
+            f"({npz} in arrays.npz), wait {med(wait_ms):.2f} ms, restore "
+            f"(verified, onto the card) {med(rest_ms):.2f} ms, verify "
+            f"{med(ver_ms):.2f} ms a step ({card})")
+        del got
+
+        # a NaN chunk: one rollback, the backoff logged, Y finite
+        pol_n = policy("nan")
+        with faults.active(faults.FaultScript(
+                faults.NaNChunk(at_step=L_NAN_CHUNK * CHUNK))):
+            st_n, t_n = timed_fit(resilience=pol_n)
+        rb = [e for e in pol_n.events if e["kind"] == "rollback"]
+        check(len(rb) == 1 and rb[0]["step"] == L_NAN_CHUNK * CHUNK,
+              f"NaN chunk: events {pol_n.events}")
+        check(not unexpected(pol_n, ("rollback", "straggler",
+                                     "early_checkpoint")),
+              f"NaN chunk: events {pol_n.events}")
+        check(int(st_n.step) == ITERS and bool(torch.isfinite(st_n.Y).all()),
+              "NaN chunk: the run did not finish finite")
+        rec_n = recall(st_n.hd_idx)
+        log(f"[l] NaN chunk at step {L_NAN_CHUNK * CHUNK}: one rollback "
+            f"({rb[0]['reason'][:60]}...), lr_scale {rb[0]['lr_scale']}, "
+            f"ex_scale {rb[0]['ex_scale']}; Y finite, recall {rec_n:.4f}; "
+            f"{ITERS / t_n:.1f} steps/s with the retried chunk")
+        del st_n
+
+        # preemption, then resume: bit for bit the uninterrupted run
+        at = L_PREEMPT_CHUNK * CHUNK
+        pol_p = policy("preempt")
+        try:
+            with faults.active(faults.FaultScript(faults.Preemption(at))):
+                timed_fit(resilience=pol_p)
+            check(False, "the preemption did not fire")
+        except faults.Preempted as e:
+            killed = e.step
+        steps_p = Checkpointer(pol_p.checkpoint_dir).all_steps()
+        check(killed == at and steps_p[-1] == at,
+              f"preempted at {killed}, committed {steps_p}")
+        st_r, t_r = timed_fit(resilience=policy("preempt"),
+                              resume_from=pol_p.checkpoint_dir)
+        check(same(st_r, st_d), "the resumed run differs from phase (d)")
+        log(f"[l] preempted at step {killed} (committed {steps_p}); "
+            f"fit(resume_from=) ran steps {at}-{ITERS} in {t_r:.2f}s (init "
+            f"and restore included) and ends bit for bit on phase (d)'s "
+            f"state")
+        del st_r
+
+        # the newest boundary damaged at the preemption: the fsck reports
+        # it, the resume falls back one boundary and replays exactly
+        pol_x = policy("corrupt")
+        shard = faults.CorruptShard(at_step=at, mode="bitflip")
+        try:
+            with faults.active(faults.FaultScript(shard,
+                                                  faults.Preemption(at))):
+                timed_fit(resilience=pol_x)
+            check(False, "the preemption did not fire")
+        except faults.Preempted:
+            pass
+        check(shard.damaged is not None, "CorruptShard did not fire")
+        env = dict(os.environ, PYTHONPATH=os.path.join(src, "src"))
+        t0 = time.perf_counter()
+        fsck = subprocess.run(
+            [sys.executable, "-m", "repro_torch.checkpoint.verify",
+             pol_x.checkpoint_dir], capture_output=True, text=True, env=env,
+            timeout=300)
+        t_fsck = time.perf_counter() - t0
+        lines = fsck.stdout.strip().splitlines()
+        check(fsck.returncode == 1 and lines[-1].startswith(
+            f"step {at}: CORRUPT -- arrays.npz: CRC32 mismatch")
+            and all(": OK (1 shard file(s), n_hosts=1)" in ln
+                    for ln in lines[:-1]),
+              f"fsck exit {fsck.returncode}: {fsck.stdout} {fsck.stderr}")
+        pol_xr = policy("corrupt")
+        st_x, _ = timed_fit(resilience=pol_xr,
+                            resume_from=pol_x.checkpoint_dir)
+        fbs = [e for e in pol_xr.events if e["kind"] == "checkpoint_fallback"]
+        check([f["step"] for f in fbs] == [at],
+              f"damaged resume: events {pol_xr.events}")
+        check(same(st_x, st_d), "the resume past a damaged boundary differs "
+              "from phase (d)")
+        log(f"[l] damaged boundary {at} (one bit flipped): python -m "
+            f"repro_torch.checkpoint.verify exit {fsck.returncode} (the "
+            f"reference's 1) in {t_fsck:.2f}s: "
+            + " | ".join(lines) + f"; the resume logged checkpoint_fallback"
+            f" from {at}, restored step {at - 2 * CHUNK}, and ends bit for "
+            f"bit on phase (d)'s state")
+        del st_x
+
+        # a kernel fault under sticky_fallback: on the card it surfaces
+        # from fit as a kernel_fault event, with nothing demoted (no plain
+        # version runs on CUDA tensors), and the run resumes from its last
+        # committed boundary
+        pol_k = policy("kernel", sticky_fallback=True)
+        fault = faults.KernelLaunchFault("knn_merge",
+                                         at_launch=L_FAULT_LAUNCH)
+        kernels.reset_launches()
+        try:
+            with faults.active(faults.FaultScript(fault)):
+                timed_fit(resilience=pol_k)
+            check(False, "kernel fault: fit did not raise")
+        except faults.InjectedKernelFault as e:
+            raised = str(e)
+        launches_k = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+        kinds_k = [e["kind"] for e in pol_k.events]
+        ev = [e for e in pol_k.events if e["kind"] == "kernel_fault"]
+        check(fault.fired and fallback.demotions() == {}
+              and "kernel_demoted" not in kinds_k and len(ev) == 1
+              and ev[0]["family"] == "knn_merge",
+              f"kernel fault: {fallback.demotions()} {pol_k.events}")
+        b2 = sum(launches_k.get(k_, 0) for k_ in b2_keys)
+        check(b2 == L_FAULT_LAUNCH and set(launches_k) <= main_kernels,
+              f"kernel fault: B2 launched {b2} times, {L_FAULT_LAUNCH} "
+              f"expected (every guarded call before the fault); launches "
+              f"{launches_k}")
+        steps_k = Checkpointer(pol_k.checkpoint_dir).all_steps()
+        kernels.reset_launches()
+        st_k, t_k = timed_fit(resilience=policy("kernel"),
+                              resume_from=pol_k.checkpoint_dir)
+        launches_kr = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+        check(same(st_k, st_d), "the run resumed past the kernel fault "
+              "differs from phase (d)'s state")
+        check(set(launches_kr) == main_kernels and fallback.demotions() == {},
+              f"kernel fault resume: launches {launches_kr}")
+        log(f"[l] KernelLaunchFault('knn_merge', at_launch={L_FAULT_LAUNCH})"
+            f": fit raised InjectedKernelFault ({raised}) with one "
+            f"kernel_fault event, no demotion; launches before it "
+            f"{launches_k} (B2 stopped at {b2}); committed {steps_k}; "
+            f"fit(resume_from=) ran steps {steps_k[-1]}-{ITERS} in "
+            f"{t_k:.2f}s, launches {launches_kr}, and ends bit for bit on "
+            f"phase (d)'s state")
+        fallback.reset()
+        del st_k
+
+        # the session example on X with session-70k's waves
+        ids = torch.arange(N)
+        waves = [torch.nonzero(ids % 3 == r)[:, 0].numpy() for r in range(3)]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st_s, pol_s, report = dynamic_stream.run_session(
+            X, labels, waves, n_iter=SESSION_ITERS,
+            remove_iters=SESSION_REMOVE_ITERS, chunk_size=CHUNK,
+            perplexity=float(hp.perplexity), ckdir=os.path.join(root, "stream"),
+            sample=RECALL_ROWS, log=lambda ln: log(f"    {ln}"), device=dev)
+        t_s = time.perf_counter() - t0
+        launches_s = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+        check(set(launches_s) == main_kernels,
+              f"dynamic_stream launched {launches_s}")
+        check(report[-1]["finite"] and fallback.demotions() == {}
+              and not unexpected(pol_s), f"dynamic_stream: {pol_s.events}")
+        # far above the random lists' 32/70,000 (session-70k's recall of
+        # all active rows fell to about 0.24 by its last wave)
+        check(all(r["recall"] > 0.1 for r in report[:3]),
+              f"dynamic_stream recalls {[r['recall'] for r in report[:3]]}")
+        log(f"[l] dynamic_stream on X, waves of {[len(w) for w in waves]} "
+            f"rows: recall@{cfg.k_hd} of {RECALL_ROWS} wave-0 rows after each "
+            f"wave {[round(r['recall'], 4) for r in report[:3]]}, AUC "
+            f"{[round(r['auc'], 4) for r in report[:3]]}; after the removal "
+            f"{report[-1]['active']} active, Y finite; {len(pol_s.events)} "
+            f"resilience events; {t_s:.1f}s in all")
+        del st_s
+    finally:
+        fallback.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[l] phase (l) took {time.perf_counter() - t_l:.1f}s")
 
 
 def main():
@@ -2531,6 +2831,10 @@ def main():
         f"kernel held; audit of a copy with planted faults {planted}")
     del st_s, st_w0, stq_s, st_k, st_p, recq, bad_hd, bad_ld, bad_y
     log(f"[k] phase (k) took {time.perf_counter() - t_k:.1f}s")
+
+    # ---- (l) resilience and recovery ----------------------------------------
+    resilience_phase(X, y_np, cfg, hp, st, ITERS / t_run, recall,
+                     main_kernels, hd_key, ld_key, card)
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 

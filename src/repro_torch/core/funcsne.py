@@ -28,7 +28,9 @@ state, and ``init_state(seed=s)`` draws the JAX package's start for
 
 A session between chunks uses ``add_points``, ``remove_points``,
 ``rescale_embedding`` and ``audit_state``; ``fit`` drives the chunks, with
-its ``callback``, ``early_stop`` and ``auto_rescale``.
+its ``callback``, ``early_stop`` and ``auto_rescale``, and under a
+``ResiliencePolicy`` (``core.resilience``) rolls back tripped chunks,
+checkpoints (``repro_torch.checkpoint``) and resumes.
 
 PyTorch runs eagerly, so the chunk runner (``make_chunked_step``) is a
 Python loop over steps; the gate's branch and the reverse-table cadence are
@@ -38,16 +40,22 @@ key words, so the scalar key chain (``fold_in``, ``split``, the gate's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import time
+import warnings
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.checkpoint import Checkpointer, cfg_compat
 from repro_torch.core import affinities
 from repro_torch.core import knn
 from repro_torch.core import threefry
 from repro_torch.core.knn import SENTINEL
+from repro_torch.core.resilience import EmbeddingDiverged
+from repro_torch.kernels import fallback
 from repro_torch.kernels.knn_merge.ops import (MAX_C, MAX_K, knn_merge,
                                                knn_merge_cand)
 from repro_torch.kernels.knn_merge.ref import knn_merge_cand_ref, knn_merge_ref
@@ -62,6 +70,8 @@ from repro_torch.kernels.pairwise_sqdist.ref import (
     pairwise_sqdist_gather_ref, pairwise_sqdist_ref)
 from repro_torch.kernels.segment_sum.ops import segment_sum
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+from repro_torch.runtime import faults
+from repro_torch.runtime.straggler import StepTimeMonitor
 
 
 # --------------------------------------------------------------------------
@@ -646,7 +656,8 @@ _METRICS_DECAY = 0.9
 
 
 def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
-                      n_iter=None, snapshot_every: int = 0):
+                      n_iter=None, snapshot_every: int = 0,
+                      health_metrics: bool = True):
     """``chunk(st, X, hp) -> (st, snapshots, ChunkMetrics)``: ``T`` steps.
 
     The counterpart of the JAX ``make_chunked_step``: the schedule is
@@ -656,6 +667,12 @@ def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
     ``snapshot_every`` is 0) that captures Y after every step whose new
     ``st.step`` is a multiple of ``snapshot_every``; the first
     ``metrics.n_snapshots`` slots are written.
+
+    The health telemetry (the finite fraction of the active rows' Y, min
+    over the chunk; their max |Y|; the first step with a non-finite entry)
+    folds into the same metrics, read by ``fit``'s resilience policy in
+    its one read a chunk.  ``health_metrics=False`` skips it: the three
+    fields keep their initial values 1.0, 0.0 and -1.
     """
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
@@ -681,14 +698,16 @@ def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
             act_disp = (st.vel.abs() * act_col).sum() \
                 / (n_act.clamp_min(1.0) * d)
             disp = decay * disp + (1.0 - decay) * act_disp
-            finite = torch.isfinite(st.Y)
-            ff = (finite.float() * act_col).sum() / (n_act * d).clamp_min(1.0)
-            ff = torch.where(n_act > 0, ff, 1.0)
-            step_max = torch.where(finite & (act_col > 0), st.Y.abs(),
-                                   0.0).max()
-            bad = torch.where((bad < 0) & (ff < 1.0), st.step - 1, bad)
-            ff_min = torch.minimum(ff_min, ff)
-            ymax = torch.maximum(ymax, step_max)
+            if health_metrics:
+                finite = torch.isfinite(st.Y)
+                ff = (finite.float() * act_col).sum() \
+                    / (n_act * d).clamp_min(1.0)
+                ff = torch.where(n_act > 0, ff, 1.0)
+                step_max = torch.where(finite & (act_col > 0), st.Y.abs(),
+                                       0.0).max()
+                bad = torch.where((bad < 0) & (ff < 1.0), st.step - 1, bad)
+                ff_min = torch.minimum(ff_min, ff)
+                ymax = torch.maximum(ymax, step_max)
             if n_snap:
                 # written on the device, as the JAX ring's cond: slot k is
                 # overwritten with itself when the step is not due
@@ -755,6 +774,42 @@ def remove_points(st: FuncSNEState, ids) -> FuncSNEState:
     rows = torch.as_tensor(ids).to(st.Y.device).long()
     return st._replace(active=st.active.index_fill(0, rows, False),
                        new_flag=st.new_flag.index_fill(0, rows, False))
+
+
+def _copy_state(st: FuncSNEState) -> FuncSNEState:
+    return FuncSNEState(*(t.clone() for t in st))
+
+
+def _scaled_hp(hp: HParams, lr_scale: float, ex_scale: float) -> HParams:
+    """Retry backoff applied to the hyperparameters.
+
+    Identity at scale 1.0 (no new tensors), so a run that never trips a
+    health probe is bit-identical to one without a policy; the schedule
+    composes on top (it multiplies ``hp.lr``), so backoff scales the whole
+    annealing curve rather than fighting it.
+    """
+    if lr_scale == 1.0 and ex_scale == 1.0:
+        return hp
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=hp.lr.device)
+    return hp._replace(lr=hp.lr * f32(lr_scale),
+                       exaggeration=hp.exaggeration * f32(ex_scale))
+
+
+def _read_host(values):
+    """A NamedTuple of 0-dim tensors on one device as Python numbers (float
+    or int, by dtype), in one device-to-host copy."""
+    got = torch.stack([v.to(torch.float64) for v in values]).tolist()
+    return type(values)(*(g if v.is_floating_point() else int(g)
+                          for v, g in zip(values, got)))
+
+
+def _checkpoint_state(st: FuncSNEState) -> FuncSNEState:
+    """The state as the JAX package checkpoints it: numpy fields, the key
+    as uint32 words (``core.convert``)."""
+    from repro_torch.core import convert
+    return FuncSNEState(**convert.state_to_numpy(st))
 
 
 class AuditResult(NamedTuple):
@@ -848,11 +903,39 @@ def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
     ``early_stop`` (below it: stop) and then with ``auto_rescale`` (below
     it, while steps remain: :func:`rescale_embedding`).
 
+    ``resilience`` (a :class:`~repro_torch.core.resilience.ResiliencePolicy`)
+    arms the fault-tolerance layer, step for step the JAX ``fit``'s:
+    before each chunk the state is cloned (the rollback anchor; a scripted
+    fault of ``runtime.faults`` poisons the copy), and after it the health
+    fields of :class:`ChunkMetrics` are read in one copy and checked (and
+    every ``audit_every`` healthy chunks :func:`audit_state`).  A tripped
+    probe rolls back to the anchor and retries with the learning rate (and
+    exaggeration) backed off, raising
+    :class:`~repro_torch.core.resilience.EmbeddingDiverged` once
+    ``max_retries`` consecutive retries fail.  With
+    ``policy.checkpoint_dir`` the whole state is written every
+    ``checkpoint_every`` healthy chunks through
+    :class:`~repro_torch.checkpoint.Checkpointer`, in the JAX package's
+    format; a straggler or hang alarm of the chunk-time watchdog commits
+    the boundary at once.  ``policy.sticky_fallback`` enables the guarded
+    calls of ``kernels.fallback`` for the run: on the CPU a kernel family
+    whose call raises is demoted to its plain version (a warning, and an
+    event in ``policy.events``); on the card the fault is a
+    ``kernel_fault`` event and propagates, and the run resumes from its
+    last checkpoint.  A clean run under a policy is bit-identical to
+    ``resilience=None``.
+
+    ``resume_from`` (a checkpoint directory) restores the newest boundary
+    that verifies (each damaged one skipped is a ``checkpoint_fallback``
+    event, or a warning without a policy), with its iteration and backoff
+    scales; a checkpoint of another config raises
+    ``CheckpointIncompatible``.  A resumed run is bit-identical to the
+    uninterrupted one.
+
     A schedule that needs ``it`` on the host (``int(it)``, a branch on it)
     runs in the per-step host loop instead, as the JAX ``fit`` routes one
     that cannot be traced; ``state``, ``resilience`` and ``resume_from``
-    raise ``ValueError`` with such a schedule.  ``resilience`` and
-    ``resume_from`` are not ported yet and raise ``NotImplementedError``.
+    raise ``ValueError`` with such a schedule.
     """
     dev = resolve_device(device)
     X = torch.as_tensor(X, dtype=torch.float32).to(dev).contiguous()
@@ -873,10 +956,6 @@ def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
             "resilience / resume_from / state require a traceable schedule "
             "(the per-step host-loop fallback does not support them); use "
             "a schedule evaluable with a traced `it`")
-    unported = {"resilience": resilience, "resume_from": resume_from}
-    given = [k for k, v in unported.items() if v is not None]
-    if given:
-        raise NotImplementedError(f"fit options not ported yet: {given}")
     if host_only:
         return _fit_host_loop(X, cfg, n_iter, seed, hparams, schedule, init,
                               snapshot_every, callback, early_stop,
@@ -884,32 +963,164 @@ def fit(X, *, cfg: FuncSNEConfig = None, n_iter: int = 750, seed: int = 0,
     st = state if state is not None else init_state(
         X, cfg, seed=seed, init=init, perplexity=hparams.perplexity,
         validate=False, device=dev)
+
+    policy = resilience
+    ck = monitor = None
+    start_it = 0
+    lr_scale = ex_scale = 1.0
+    if policy is not None:
+        if policy.checkpoint_dir is not None:
+            ck = Checkpointer(policy.checkpoint_dir,
+                              keep_last=policy.keep_last)
+        monitor = StepTimeMonitor(z_thresh=policy.straggler_z,
+                                  hang_timeout=policy.hang_timeout,
+                                  warmup_steps=policy.straggler_warmup)
+    if resume_from is not None:
+        rck = ck if (ck is not None
+                     and str(ck.dir) == str(resume_from)) else \
+            Checkpointer(resume_from)
+        # the newest boundary that verifies: a damaged one (torn write, bit
+        # flip, lost file) falls back to the one before; a config mismatch
+        # raises CheckpointIncompatible
+        st, meta, fbs = rck.restore_verified(
+            st, expect_compat=cfg_compat(cfg))
+        for fb in fbs:
+            if policy is not None:
+                policy.log("checkpoint_fallback", **fb)
+            else:
+                warnings.warn(
+                    f"[checkpoint] skipping damaged boundary step "
+                    f"{fb['step']}: {fb['reason']}", RuntimeWarning)
+        start_it = int(meta["step"])
+        lr_scale = float(meta.get("lr_scale", 1.0))
+        ex_scale = float(meta.get("ex_scale", 1.0))
+
     snapshots = []
     chunks = {}
-    it = 0
-    while it < n_iter:
-        T = min(chunk_size, n_iter - it)
-        if T not in chunks:
-            chunks[T] = make_chunked_step(cfg, T, schedule=schedule,
-                                          n_iter=n_iter,
-                                          snapshot_every=snapshot_every)
-        st, snaps, metrics = chunks[T](st, X, hparams)
-        if snapshot_every:
-            taken = int(metrics.n_snapshots)
-            snapshots.extend(list(snaps[:taken].cpu().numpy()))
-        if callback is not None:
-            callback(it + T - 1, st)
-        it += T
-        if early_stop is not None or auto_rescale is not None:
-            # in steady-state per-step units whatever T (at T = 1 the
-            # factor is the single step's weight 0.1: the host loop's
-            # act_disp)
-            disp = float(metrics.disp_ema) / (1.0 - _METRICS_DECAY ** T)
-            if early_stop is not None and disp < early_stop:
-                break
-            if auto_rescale is not None and it < n_iter \
-                    and disp < auto_rescale:
-                st = rescale_embedding(st)
+    it = start_it
+    retries = 0
+    n_healthy = 0       # healthy chunks since the start (checkpoint cadence)
+    fb_seen = fallback.n_events()
+    guard = fallback.enabled(policy.sticky_fallback) \
+        if policy is not None else contextlib.nullcontext()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(guard)
+        if ck is not None:
+            # every exit path (EmbeddingDiverged, Preempted, a raising
+            # callback) joins the write in flight, so the last boundary is
+            # on disk for a resume; close() warns about an unobserved write
+            # error instead of masking the exception in flight
+            stack.callback(ck.close)
+        while it < n_iter:
+            T = min(chunk_size, n_iter - it)
+            if T not in chunks:
+                # only the policy reads the health telemetry
+                chunks[T] = make_chunked_step(
+                    cfg, T, schedule=schedule, n_iter=n_iter,
+                    snapshot_every=snapshot_every,
+                    health_metrics=policy is not None)
+            hp_run = _scaled_hp(hparams, lr_scale, ex_scale)
+            if policy is not None or faults.current() is not None:
+                # the live `st` is the rollback anchor: the chunk runs on a
+                # copy, and a scripted fault poisons the copy, as a
+                # divergence inside the chunk would
+                st_in = faults.corrupt_state(_copy_state(st), it)
+            else:
+                st_in = st
+            t0 = time.perf_counter()
+            try:
+                st_out, snaps, metrics = chunks[T](st_in, X, hp_run)
+            except Exception:
+                # a kernel fault on the card propagates: its event goes
+                # into the policy's log first
+                if policy is not None:
+                    for e in fallback.events(fb_seen):
+                        policy.log(**e)
+                raise
+            alarm = None
+            if policy is not None:
+                m = _read_host(metrics)     # the one host read a chunk
+                alarm = monitor.observe(time.perf_counter() - t0)
+                if alarm is not None:
+                    policy.log("straggler", step=it, alarm=alarm)
+                for e in fallback.events(fb_seen):
+                    policy.log(**e)
+                fb_seen = fallback.n_events()
+                reason = policy.check(m)
+                if reason is None and policy.audit_every \
+                        and (n_healthy + 1) % policy.audit_every == 0:
+                    # the chunk-boundary audit catches index corruption
+                    # the finite-fraction probes cannot see; a violation
+                    # takes the same rollback path
+                    reason = policy.audit_check(
+                        _read_host(audit_state(st_out, cfg, X)))
+                    if reason is not None:
+                        policy.log("audit_violation", step=it,
+                                   reason=reason)
+                if reason is not None:
+                    if retries >= policy.max_retries:
+                        policy.log("giving_up", step=it, reason=reason,
+                                   retries=retries)
+                        raise EmbeddingDiverged(it, reason, retries,
+                                                policy.events)
+                    retries += 1
+                    lr_scale *= policy.lr_backoff
+                    ex_scale *= policy.exaggeration_backoff
+                    policy.log("rollback", step=it, reason=reason,
+                               retry=retries, lr_scale=lr_scale,
+                               ex_scale=ex_scale)
+                    continue    # `st` still holds the last healthy state
+                retries = 0
+            else:
+                m = metrics
+            st = st_out
+            if snapshot_every:
+                taken = int(m.n_snapshots)
+                snapshots.extend(list(snaps[:taken].cpu().numpy()))
+            if callback is not None:
+                callback(it + T - 1, st)
+            it += T
+            if policy is not None:
+                n_healthy += 1
+                if ck is not None:
+                    meta = {"lr_scale": lr_scale, "ex_scale": ex_scale,
+                            "compat": cfg_compat(cfg)}
+                    saved = n_healthy % policy.checkpoint_every == 0
+                    if saved:
+                        ck.save(it, _checkpoint_state(st), metadata=meta)
+                    if alarm is not None:
+                        # a straggler or hang alarm commits this boundary
+                        # before the next chunk, so that a kill that
+                        # follows loses at most one chunk
+                        if saved:
+                            ck.wait()       # land the write in flight
+                        else:
+                            ck.save(it, _checkpoint_state(st),
+                                    metadata=meta, blocking=True)
+                        policy.log("early_checkpoint", step=it,
+                                   alarm=alarm)
+            # scripted damage to the newest committed checkpoint (the hook
+            # waits for the write in flight): exercises the verified
+            # restore's fallback chain on resume
+            faults.maybe_corrupt_checkpoint(it, ck)
+            # a simulated kill between chunks; the ExitStack's ck.close()
+            # lets the write in flight land, so the boundary just saved is
+            # committed for a resume
+            faults.maybe_preempt(it)
+            if early_stop is not None or auto_rescale is not None:
+                # in steady-state per-step units whatever T (at T = 1 the
+                # factor is the single step's weight 0.1: the host loop's
+                # act_disp)
+                disp = float(m.disp_ema) / (1.0 - _METRICS_DECAY ** T)
+                if early_stop is not None and disp < early_stop:
+                    break
+                if auto_rescale is not None and it < n_iter \
+                        and disp < auto_rescale:
+                    st = rescale_embedding(st)
+        if ck is not None:
+            ck.wait()   # surface an async write failure before returning:
+            #             the last checkpoint of a run must not vanish
+            #             silently (close() above only warns)
     return st, snapshots
 
 

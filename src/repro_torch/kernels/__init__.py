@@ -2,7 +2,12 @@
 
 Every wrapper dispatches on its tensors' device: a CPU tensor runs the
 plain PyTorch version (``ref.py``), a CUDA tensor launches the CUDA kernel
-(``repro_torch/csrc``) or raises.  Nothing falls back.
+(``repro_torch/csrc``) or raises; no plain version ever runs on CUDA
+tensors in a kernel's place.  The families the JAX package guards (B1-B7)
+run their call through ``fallback.guarded``, a pass-through until
+``fallback.enabled`` (``fit`` under a ``ResiliencePolicy`` with
+``sticky_fallback``): then a fault demotes the family on the CPU (a
+warning and an event) and is logged and raised again on the card.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain versions are not
 counted), so a run can show that its path went through the kernels.

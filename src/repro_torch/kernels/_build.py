@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import fallback
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -134,6 +136,18 @@ def kernel_device(*tensors) -> str:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     return dev.type
+
+
+def guarded(family: str, launch, ref=None):
+    """Run a wrapper's call under ``fallback.guarded(family)``.  On the CPU
+    ``launch`` is None and the plain version ``ref`` stands in for the
+    kernel (and is what a demoted family runs); on the card the kernels are
+    built first, so a build failure raises, and ``launch`` runs with no
+    plain version to give way to: a fault raises."""
+    if launch is None:
+        return fallback.guarded(family, ref, ref)
+    library()
+    return fallback.guarded(family, launch)
 
 
 def require(cond: bool, msg: str) -> None:

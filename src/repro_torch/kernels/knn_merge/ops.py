@@ -16,10 +16,14 @@ Each runs one of three routes, chosen by shape (``merge_route``):
 
 Each route counts its launches under its own key (``knn_merge[_cand]_lanes``,
 ``knn_merge[_cand]_ring``; the warp route by mode, ``_hd`` or ``_ld``).  The
-routes' distances, ids and flags agree bit for bit."""
+routes' distances, ids and flags agree bit for bit.
+
+Both run under ``fallback.guarded`` of the family "knn_merge", as their
+JAX counterparts do: a pass-through unless a caller opts in."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,6 +42,7 @@ LANE_M, LANE_SLOTS = 8, 32
 RING_MIN_M, RING_MAX_M = 128, 1024
 _KINDS = {"uniform": 0, "one_hop": 1, "two_hop": 2, "extra": 3}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_FAMILY = "knn_merge"
 
 
 class _MergeArgs(ctypes.Structure):
@@ -61,8 +66,8 @@ def _ptr(t):
 
 
 def _merge_args(x, qid, cur_idx, cur_d, cur_valid, c):
-    """Check the inputs both kernels share, allocate the outputs and fill
-    the common fields.  Returns (args, (new_idx, new_d, improved))."""
+    """Check the inputs both kernels share and fill the common fields of
+    the argument block (the outputs' are filled by :func:`_alloc_outs`)."""
     req = _build.require
     n, m = x.shape
     b, k = cur_idx.shape
@@ -79,15 +84,19 @@ def _merge_args(x, qid, cur_idx, cur_d, cur_valid, c):
     else:
         req(cur_valid.dtype == torch.bool and cur_valid.shape == (b, k)
             and cur_valid.is_contiguous(), "cur_valid must be (B, K) bool")
-    outs = (torch.empty((b, k), dtype=torch.int32, device=x.device),
-            torch.empty((b, k), dtype=torch.float32, device=x.device),
-            torch.empty((b,), dtype=torch.bool, device=x.device))
-    a = _MergeArgs(x=x.data_ptr(), n=n, m=m, qid=qid.data_ptr(), b=b,
-                   cur_idx=cur_idx.data_ptr(), cur_d=_ptr(cur_d),
-                   cur_valid=_ptr(cur_valid), k=k, c=c,
-                   new_idx=outs[0].data_ptr(), new_d=outs[1].data_ptr(),
-                   improved=outs[2].data_ptr())
-    return a, outs
+    return _MergeArgs(x=x.data_ptr(), n=n, m=m, qid=qid.data_ptr(), b=b,
+                      cur_idx=cur_idx.data_ptr(), cur_d=_ptr(cur_d),
+                      cur_valid=_ptr(cur_valid), k=k, c=c)
+
+
+def _alloc_outs(a, x):
+    """Allocate the outputs (new_idx, new_d, improved) of the argument
+    block ``a`` on ``x``'s device and point ``a`` at them."""
+    outs = (torch.empty((a.b, a.k), dtype=torch.int32, device=x.device),
+            torch.empty((a.b, a.k), dtype=torch.float32, device=x.device),
+            torch.empty((a.b,), dtype=torch.bool, device=x.device))
+    a.new_idx, a.new_d, a.improved = (t.data_ptr() for t in outs)
+    return outs
 
 
 def merge_route(m, k, c, aligned=True):
@@ -135,9 +144,10 @@ def knn_merge(x, qid, cur_idx, cur_d, cand, *, cand_active=None,
     if (cur_d is None) == (cur_valid is None):
         raise ValueError("pass cur_d (HD mode) or cur_valid (rescore mode)")
     opt = [t for t in (cur_d, cur_valid, cand_active) if t is not None]
+    ref = functools.partial(knn_merge_ref, x, qid, cur_idx, cur_d, cand,
+                            cand_active=cand_active, cur_valid=cur_valid)
     if _build.kernel_device(x, qid, cur_idx, cand, *opt) == "cpu":
-        return knn_merge_ref(x, qid, cur_idx, cur_d, cand,
-                             cand_active=cand_active, cur_valid=cur_valid)
+        return _build.guarded(_FAMILY, None, ref)
     b, c = cand.shape
     req = _build.require
     req(cand.dtype == torch.int32 and cand.ndim == 2 and b == qid.shape[0]
@@ -146,10 +156,14 @@ def knn_merge(x, qid, cur_idx, cur_d, cand, *, cand_active=None,
         req(cand_active.dtype == torch.bool and cand_active.shape == (b, c)
             and cand_active.is_contiguous(),
             "cand_active must be a contiguous (B, C) bool tensor")
-    a, outs = _merge_args(x, qid, cur_idx, cur_d, cur_valid, c)
+    a = _merge_args(x, qid, cur_idx, cur_d, cur_valid, c)
     a.cand, a.cand_valid = cand.data_ptr(), _ptr(cand_active)
-    _launch("knn_merge", a, x, "ld" if cur_d is None else "hd")
-    return outs
+
+    def launch():
+        outs = _alloc_outs(a, x)
+        _launch("knn_merge", a, x, "ld" if cur_d is None else "hd")
+        return outs
+    return _build.guarded(_FAMILY, launch)
 
 
 def _slot_plan(sources):
@@ -190,12 +204,14 @@ def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
         raise ValueError("pass cur_d (HD mode) or cur_valid (rescore mode)")
     sources = tuple(s for s in sources if s[-1] > 0)
     opt = [t for t in (cur_d, cur_valid, extra, active) if t is not None]
+    ref = functools.partial(
+        knn_merge_cand_ref, x, qid, cur_idx, cur_d, salt=salt,
+        sources=sources, first_tables=first_tables,
+        second_tables=second_tables, extra=extra, active=active,
+        cur_valid=cur_valid)
     if _build.kernel_device(x, qid, cur_idx, salt, *first_tables,
                             *second_tables, *opt) == "cpu":
-        return knn_merge_cand_ref(x, qid, cur_idx, cur_d, salt=salt,
-                                  sources=sources, first_tables=first_tables,
-                                  second_tables=second_tables, extra=extra,
-                                  active=active, cur_valid=cur_valid)
+        return _build.guarded(_FAMILY, None, ref)
     req = _build.require
     plan = _slot_plan(sources)
     n = x.shape[0]
@@ -221,7 +237,7 @@ def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
         req(active.dtype == torch.bool and active.shape == (n,)
             and active.is_contiguous(), "active must be a (N,) bool tensor")
 
-    a, outs = _merge_args(x, qid, cur_idx, cur_d, cur_valid, len(plan))
+    a = _merge_args(x, qid, cur_idx, cur_d, cur_valid, len(plan))
     a.salt, a.active = salt.data_ptr(), _ptr(active)
     a.extra, a.extra_w = _ptr(extra), n_extra
     for i, f in enumerate(first_tables):
@@ -231,5 +247,9 @@ def knn_merge_cand(x, qid, cur_idx, cur_d, *, salt, sources,
                                                      s.shape[0], s.shape[1])
     for g, (kind, f, s, e) in enumerate(plan):
         a.kind[g], a.tab[g], a.sec[g], a.col[g] = kind, f, s, e
-    _launch("knn_merge_cand", a, x, "ld" if cur_d is None else "hd")
-    return outs
+
+    def launch():
+        outs = _alloc_outs(a, x)
+        _launch("knn_merge_cand", a, x, "ld" if cur_d is None else "hd")
+        return outs
+    return _build.guarded(_FAMILY, launch)

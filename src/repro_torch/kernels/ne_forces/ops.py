@@ -16,10 +16,14 @@ Each route counts its launches under its own key (``ne_forces_rounds``,
 ``ne_forces_staged``, ``ne_forces_gather_rounds``,
 ``ne_forces_gather_staged``; the warp route ``ne_forces`` and
 ``ne_forces_gather``).  Their outputs agree bit for bit.  The C entries
-refuse a width or a row they do not take."""
+refuse a width or a row they do not take.
+
+All three run under ``fallback.guarded`` of the family "ne_forces", as
+their JAX counterparts do: a pass-through unless a caller opts in."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,6 +34,7 @@ from repro_torch.kernels.ne_forces.ref import (
 _MAX_SEG = 4
 _MODES = {"attraction": 0, "repulsion": 1}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_FAMILY = "ne_forces"
 
 
 # the routes of B5 and B7 by width (csrc/ne_forces.cu: kRoundsMaxD and the
@@ -128,8 +133,9 @@ def ne_forces(y, nbr, coef, alpha, *, mode: str):
     ``repro.kernels.ne_forces.ops.ne_forces``.
     """
     segments = _check_segments(((mode, nbr.shape[1]),), nbr.shape[1])
+    ref = functools.partial(ne_forces_ref, y, nbr, coef, alpha, mode=mode)
     if _build.kernel_device(y, nbr, coef, alpha) == "cpu":
-        return ne_forces_ref(y, nbr, coef, alpha, mode=mode)
+        return _build.guarded(_FAMILY, None, ref)
     b, d = y.shape
     k = nbr.shape[1]
     req = _build.require
@@ -138,15 +144,18 @@ def ne_forces(y, nbr, coef, alpha, *, mode: str):
     req(nbr.dtype == torch.float32 and nbr.shape == (b, k, d)
         and nbr.is_contiguous(), "nbr must be a contiguous (B, K, d) float32")
     _check_common(coef, alpha, b, k, d, 1)
-    dev = y.device
-    agg = torch.empty((1, b, d), dtype=torch.float32, device=dev)
-    edge = torch.empty((b, k, d), dtype=torch.float32, device=dev)
-    wsum = torch.empty((1, b), dtype=torch.float32, device=dev)
-    a = _EdgeArgs(y=y.data_ptr(), nbr=nbr.data_ptr(), coef=coef.data_ptr(),
-                  alpha=alpha.data_ptr(), b=b, k=k, n_seg=1,
-                  agg=agg.data_ptr(), wsum=wsum.data_ptr())
-    _launch_edges(a, segments, (edge,), d, nbr, "ne_forces")
-    return agg[0], edge, wsum[0]
+
+    def launch():
+        dev = y.device
+        agg = torch.empty((1, b, d), dtype=torch.float32, device=dev)
+        edge = torch.empty((b, k, d), dtype=torch.float32, device=dev)
+        wsum = torch.empty((1, b), dtype=torch.float32, device=dev)
+        a = _EdgeArgs(y=y.data_ptr(), nbr=nbr.data_ptr(),
+                      coef=coef.data_ptr(), alpha=alpha.data_ptr(), b=b, k=k,
+                      n_seg=1, agg=agg.data_ptr(), wsum=wsum.data_ptr())
+        _launch_edges(a, segments, (edge,), d, nbr, "ne_forces")
+        return agg[0], edge, wsum[0]
+    return _build.guarded(_FAMILY, launch)
 
 
 def ne_forces_gather(x, qid, nbr_idx, coef, alpha, *, segments, emit_edges):
@@ -160,9 +169,10 @@ def ne_forces_gather(x, qid, nbr_idx, coef, alpha, *, segments, emit_edges):
     segments = _check_segments(segments, nbr_idx.shape[1])
     emit_edges = tuple(bool(e) for e in emit_edges)
     _build.require(len(emit_edges) == len(segments), "one emit_edges per segment")
+    ref = functools.partial(ne_forces_gather_ref, x, qid, nbr_idx, coef,
+                            alpha, segments=segments, emit_edges=emit_edges)
     if _build.kernel_device(x, qid, nbr_idx, coef, alpha) == "cpu":
-        return ne_forces_gather_ref(x, qid, nbr_idx, coef, alpha,
-                                    segments=segments, emit_edges=emit_edges)
+        return _build.guarded(_FAMILY, None, ref)
     n, d = x.shape
     b, k = nbr_idx.shape
     s = len(segments)
@@ -174,18 +184,22 @@ def ne_forces_gather(x, qid, nbr_idx, coef, alpha, *, segments, emit_edges):
     req(nbr_idx.dtype == torch.int32 and nbr_idx.is_contiguous(),
         "nbr_idx must be a contiguous (B, K) int32 tensor")
     _check_common(coef, alpha, b, k, d, s)
-    dev = x.device
-    aggs = torch.empty((s, b, d), dtype=torch.float32, device=dev)
-    wsums = torch.empty((s, b), dtype=torch.float32, device=dev)
-    edges = tuple(torch.empty((b, size, d), dtype=torch.float32, device=dev)
-                  if emit else None
-                  for (_, size), emit in zip(segments, emit_edges))
-    a = _EdgeArgs(x=x.data_ptr(), n=n, qid=qid.data_ptr(),
-                  nbr_idx=nbr_idx.data_ptr(), coef=coef.data_ptr(),
-                  alpha=alpha.data_ptr(), b=b, k=k, n_seg=s,
-                  agg=aggs.data_ptr(), wsum=wsums.data_ptr())
-    _launch_edges(a, segments, edges, d, x, "ne_forces_gather")
-    return tuple(aggs.unbind(0)), edges, tuple(wsums.unbind(0))
+
+    def launch():
+        dev = x.device
+        aggs = torch.empty((s, b, d), dtype=torch.float32, device=dev)
+        wsums = torch.empty((s, b), dtype=torch.float32, device=dev)
+        edges = tuple(
+            torch.empty((b, size, d), dtype=torch.float32, device=dev)
+            if emit else None
+            for (_, size), emit in zip(segments, emit_edges))
+        a = _EdgeArgs(x=x.data_ptr(), n=n, qid=qid.data_ptr(),
+                      nbr_idx=nbr_idx.data_ptr(), coef=coef.data_ptr(),
+                      alpha=alpha.data_ptr(), b=b, k=k, n_seg=s,
+                      agg=aggs.data_ptr(), wsum=wsums.data_ptr())
+        _launch_edges(a, segments, edges, d, x, "ne_forces_gather")
+        return tuple(aggs.unbind(0)), edges, tuple(wsums.unbind(0))
+    return _build.guarded(_FAMILY, launch)
 
 
 def ne_forces_scatter(x, qid, nbr_idx, coef, alpha, *, segments,
@@ -210,10 +224,11 @@ def ne_forces_scatter(x, qid, nbr_idx, coef, alpha, *, segments,
     scatter_back = tuple(bool(v) for v in scatter_back)
     req = _build.require
     req(len(scatter_back) == len(segments), "one scatter_back per segment")
+    ref = functools.partial(ne_forces_scatter_ref, x, qid, nbr_idx, coef,
+                            alpha, segments=segments,
+                            scatter_back=scatter_back)
     if _build.kernel_device(x, qid, nbr_idx, coef, alpha) == "cpu":
-        return ne_forces_scatter_ref(x, qid, nbr_idx, coef, alpha,
-                                     segments=segments,
-                                     scatter_back=scatter_back)
+        return _build.guarded(_FAMILY, None, ref)
     n, d = x.shape
     b, k = nbr_idx.shape
     s = len(segments)
@@ -224,7 +239,16 @@ def ne_forces_scatter(x, qid, nbr_idx, coef, alpha, *, segments,
     req(nbr_idx.dtype == torch.int32 and nbr_idx.is_contiguous(),
         "nbr_idx must be a contiguous (B, K) int32 tensor")
     _check_common(coef, alpha, b, k, d, s)
+    return _build.guarded(_FAMILY, functools.partial(
+        _launch_scatter, x, qid, nbr_idx, coef, alpha, segments,
+        scatter_back))
 
+
+def _launch_scatter(x, qid, nbr_idx, coef, alpha, segments, scatter_back):
+    """B3's launch on checked inputs: its outputs and one launch."""
+    n, d = x.shape
+    b, k = nbr_idx.shape
+    s = len(segments)
     # two allocations: floats (the fields, the wsums, each row's aggregate)
     # and int64 (the fixed-point fields, then S + 2 flag words)
     dev = x.device

@@ -14,10 +14,14 @@ with the bounds of B2/B4's routes (``knn_merge.ops``):
 Each route counts its launches under its own key
 (``pairwise_sqdist_gather_lanes``, ``pairwise_sqdist_gather_ring``; the
 warp route ``pairwise_sqdist_gather``).  Their distances agree bit for
-bit."""
+bit.
+
+Both run under ``fallback.guarded`` of the family "pairwise_sqdist", as
+their JAX counterparts do: a pass-through unless a caller opts in."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,6 +33,7 @@ from repro_torch.kernels.pairwise_sqdist.ref import (
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P]
 _ARGTYPES_PRE = [_P, _P, _I64, _I64, _I64, _P, _P]
+_FAMILY = "pairwise_sqdist"
 
 
 def gather_route(m, aligned=True):
@@ -53,8 +58,9 @@ def _run(entry, x, qid, cand, out):
 def pairwise_sqdist_gather(x, qid, cand):
     """(N, M) f32, (B,) i32, (B, C) i32 -> (B, C) f32 squared distances
     ``||x[clip(qid[b])] - x[clip(cand[b, j])]||^2``."""
+    ref = functools.partial(pairwise_sqdist_gather_ref, x, qid, cand)
     if _build.kernel_device(x, qid, cand) == "cpu":
-        return pairwise_sqdist_gather_ref(x, qid, cand)
+        return _build.guarded(_FAMILY, None, ref)
     req = _build.require
     req(x.dtype == torch.float32 and x.ndim == 2 and x.is_contiguous(),
         "x must be a contiguous (N, M) float32 tensor")
@@ -63,18 +69,22 @@ def pairwise_sqdist_gather(x, qid, cand):
     req(cand.dtype == torch.int32 and cand.ndim == 2 and cand.is_contiguous()
         and cand.shape[0] == qid.shape[0],
         "cand must be a contiguous (B, C) int32 tensor")
-    out = torch.empty(cand.shape, dtype=torch.float32, device=x.device)
     route = gather_route(x.shape[1], x.data_ptr() % 16 == 0)
     key = "pairwise_sqdist_gather" + ("" if route == "warp" else f"_{route}")
-    _run(f"repro_{key}", x, qid, cand, out)
-    LAUNCHES[key] += 1
-    return out
+
+    def launch():
+        out = torch.empty(cand.shape, dtype=torch.float32, device=x.device)
+        _run(f"repro_{key}", x, qid, cand, out)
+        LAUNCHES[key] += 1
+        return out
+    return _build.guarded(_FAMILY, launch)
 
 
 def pairwise_sqdist(q, c):
     """(B, M) f32, (B, C, M) f32 -> (B, C) f32 ``||q[b] - c[b, j]||^2``."""
+    ref = functools.partial(pairwise_sqdist_ref, q, c)
     if _build.kernel_device(q, c) == "cpu":
-        return pairwise_sqdist_ref(q, c)
+        return _build.guarded(_FAMILY, None, ref)
     req = _build.require
     req(q.dtype == torch.float32 and q.ndim == 2 and q.is_contiguous(),
         "q must be a contiguous (B, M) float32 tensor")
@@ -83,10 +93,13 @@ def pairwise_sqdist(q, c):
         and c.shape[0] == b and c.shape[2] == m,
         "c must be a contiguous (B, C, M) float32 tensor")
     cc = c.shape[1]
-    out = torch.empty((b, cc), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _build.call("repro_pairwise_sqdist", _ARGTYPES_PRE, q.data_ptr(),
-                    c.data_ptr(), b, cc, m, out.data_ptr(),
-                    _build.stream_of(q))
-    LAUNCHES["pairwise_sqdist"] += 1
-    return out
+
+    def launch():
+        out = torch.empty((b, cc), dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            _build.call("repro_pairwise_sqdist", _ARGTYPES_PRE, q.data_ptr(),
+                        c.data_ptr(), b, cc, m, out.data_ptr(),
+                        _build.stream_of(q))
+        LAUNCHES["pairwise_sqdist"] += 1
+        return out
+    return _build.guarded(_FAMILY, launch)

@@ -9,8 +9,13 @@ steps per second (a warm-up chunk on a copy of the state runs first, so
 the kernels' build is not timed) and the R_NX AUC, and optionally writes
 the embedding to ``.npy``.  ``mnist-like`` is the 64-wide stand-in of
 ``repro.launch.embed``; ``chip_smoke.py`` runs MNIST's 784-wide shape.
-The multi-device, multi-process, checkpoint
-and audit options of ``repro.launch.embed`` are not ported yet and raise.
+
+``--checkpoint-dir`` and ``--audit-every`` hand the loop to ``funcsne.fit``
+under a ``ResiliencePolicy`` (checkpoints in the JAX package's format,
+rollback, the chunk-boundary audit); ``--resume`` continues from the
+newest boundary of ``--checkpoint-dir`` that verifies.  The multi-device
+and multi-process options of ``repro.launch.embed`` are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import funcsne
+from repro_torch.core.resilience import ResiliencePolicy
 from repro_torch.core.quality import embedding_quality
 from repro_torch.data import synthetic
 
@@ -59,13 +65,23 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
-    for flag, kind in (("--devices", int), ("--num-processes", int),
-                       ("--checkpoint-dir", str), ("--audit-every", int)):
-        ap.add_argument(flag, type=kind, default=None,
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="arm checkpoint/rollback resilience")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint-dir via the verified "
+                         "fallback chain (damaged boundaries are "
+                         "skipped with a checkpoint_fallback event)")
+    ap.add_argument("--audit-every", type=int, default=0,
+                    help="run the chunk-boundary state auditor every N "
+                         "healthy chunks (0 = off); a violation rolls "
+                         "back like any health-probe trip")
+    for flag in ("--devices", "--num-processes"):
+        ap.add_argument(flag, type=int, default=None,
                         help="not ported yet: raises NotImplementedError")
     args = ap.parse_args(argv)
-    unported = [f for f in ("devices", "num_processes", "checkpoint_dir",
-                            "audit_every")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
+    unported = [f for f in ("devices", "num_processes")
                 if getattr(args, f) not in (None, 0, 1)]
     if unported:
         raise NotImplementedError(
@@ -82,6 +98,32 @@ def main(argv=None):
                                 dim_ld=args.dim_ld)
     hp = funcsne.default_hparams(n, alpha=args.alpha,
                                  perplexity=args.perplexity, device=dev)
+
+    if args.checkpoint_dir or args.audit_every:
+        # the resilient single-device path: fit owns the loop (checkpoints,
+        # verified resume, rollback, the optional audit)
+        policy = ResiliencePolicy(checkpoint_dir=args.checkpoint_dir,
+                                  audit_every=args.audit_every)
+        t0 = time.perf_counter()
+        st, _ = funcsne.fit(Xt, cfg=cfg, n_iter=iters, chunk_size=T,
+                            hparams=hp, resilience=policy, device=dev,
+                            resume_from=args.checkpoint_dir
+                            if args.resume else None)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        q = float(embedding_quality(Xt, st.Y))
+        resumed = [e for e in policy.events
+                   if e["kind"] == "checkpoint_fallback"]
+        note = f", {len(resumed)} damaged boundary(ies) skipped" \
+            if resumed else ""
+        print(f"[embed] {args.dataset} n={n} iters={iters} chunk={T} "
+              f"alpha={args.alpha} device={dev}: {dt:.1f}s (build "
+              f"included), R_NX AUC={q:.3f}{note}")
+        if args.out:
+            np.save(args.out, st.Y.cpu().numpy())
+            print(f"[embed] wrote {args.out}")
+        return
+
     st = funcsne.init_state(Xt, cfg, perplexity=hp.perplexity, device=dev)
     chunk = funcsne.make_chunked_step(cfg, T,
                                       schedule=funcsne.default_schedule,

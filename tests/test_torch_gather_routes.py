@@ -55,6 +55,8 @@ def launched(monkeypatch):
         calls.append((entry, tuple(x.shape), tuple(cand.shape),
                       tuple(out.shape)))
     monkeypatch.setattr(_build, "kernel_device", lambda *t: "cuda")
+    # the wrapper builds the kernels before its guarded launch
+    monkeypatch.setattr(_build, "library", lambda: None)
     monkeypatch.setattr(ops, "_run", record)
     kernels.reset_launches()
     return calls

@@ -292,3 +292,21 @@ def test_port_imports_without_jax_or_repro():
     files = list(SRC.rglob("*.py")) + [SRC.parents[1] / "chip_smoke.py"]
     hits = [str(p) for p in files if bad.search(p.read_text())]
     assert not hits, hits
+
+
+def test_port_guard_covers_resilience_modules():
+    """The guard above imports the resilience slice's modules (the
+    checkpoint and runtime subpackages, the policy, the fallback registry
+    and the session example) in its poisoned process, and no script under
+    ``scripts/`` imports jax or repro either."""
+    mods = set(_port_modules())
+    assert {"repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
+            "repro_torch.checkpoint.verify", "repro_torch.runtime",
+            "repro_torch.runtime.faults", "repro_torch.runtime.straggler",
+            "repro_torch.core.resilience", "repro_torch.kernels.fallback",
+            "repro_torch.examples.dynamic_stream"} <= mods
+    bad = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
+                     re.M)
+    scripts = list((SRC.parents[1] / "scripts").glob("*.py"))
+    assert scripts
+    assert not [str(p) for p in scripts if bad.search(p.read_text())]

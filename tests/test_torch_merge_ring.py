@@ -34,6 +34,8 @@ def launched(monkeypatch):
     def record(entry, a, x):
         calls.append((entry, {f: getattr(a, f) for f, _ in a._fields_}))
     monkeypatch.setattr(_build, "kernel_device", lambda *t: "cuda")
+    # the wrapper builds the kernels before its guarded launch
+    monkeypatch.setattr(_build, "library", lambda: None)
     monkeypatch.setattr(merge_ops, "_run", record)
     kernels.reset_launches()
     return calls

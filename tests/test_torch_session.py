@@ -26,6 +26,8 @@ from repro_torch.core import convert  # noqa: E402
 from repro_torch.core import funcsne as tf  # noqa: E402
 from repro_torch.core import knn as tk  # noqa: E402
 from repro_torch.core import threefry  # noqa: E402
+from repro_torch.checkpoint import CheckpointNotFound  # noqa: E402
+from repro_torch.core.resilience import ResiliencePolicy  # noqa: E402
 
 torch.set_num_threads(1)
 F_RTOL, F_ATOL = 1e-4, 1e-6
@@ -452,10 +454,11 @@ def test_fit_bit_invariant_to_chunk_size_with_options():
             np.testing.assert_array_equal(a, b)
 
 
-def test_host_only_schedules_route_as_jax():
+def test_host_only_schedules_route_as_jax(tmp_path):
     """Every schedule the JAX package's chunk-runner tests use goes where JAX
     sends it: traceable ones to the chunks, int(it) ones to the host
-    loop; state / resilience / resume_from refuse the host loop."""
+    loop; state / resilience / resume_from refuse the host loop and run
+    in the chunks."""
     traceable = (tf.default_schedule, _ident, lambda it, n, h: h._replace(
         lr=h.lr * 0.5))
     host = (_host_schedule,
@@ -477,6 +480,9 @@ def test_host_only_schedules_route_as_jax():
         with pytest.raises(ValueError, match="traceable schedule"):
             tf.fit(X, cfg=cfg, n_iter=4, schedule=_host_schedule,
                    device="cpu", **kw)
-    for kw in (dict(resilience=object()), dict(resume_from="ckpt")):
-        with pytest.raises(NotImplementedError):
-            tf.fit(X, cfg=cfg, n_iter=4, device="cpu", **kw)
+    st_r, _ = tf.fit(X, cfg=cfg, n_iter=4, device="cpu",
+                     resilience=ResiliencePolicy())
+    assert int(st_r.step) == 4
+    with pytest.raises(CheckpointNotFound):
+        tf.fit(X, cfg=cfg, n_iter=4, device="cpu",
+               resume_from=str(tmp_path / "ckpt"))

@@ -43,6 +43,8 @@ def launched(monkeypatch):
         calls.append((entry, {f: getattr(a, f) for f, _ in a._fields_},
                       rest[0] if len(rest) == 2 else None))
     monkeypatch.setattr(_build, "kernel_device", lambda *t: "cuda")
+    # the wrapper builds the kernels before its guarded launch
+    monkeypatch.setattr(_build, "library", lambda: None)
     monkeypatch.setattr(merge_ops, "_run", record)
     monkeypatch.setattr(force_ops, "_run", record)
     kernels.reset_launches()

@@ -30,6 +30,7 @@ from repro.core.quality import embedding_quality as j_quality  # noqa: E402
 from repro.data.synthetic import blobs  # noqa: E402
 from repro_torch.core import convert  # noqa: E402
 from repro_torch.core import funcsne as tf  # noqa: E402
+from repro_torch.core.resilience import ResiliencePolicy  # noqa: E402
 from repro_torch.core.quality import embedding_quality as t_quality  # noqa: E402
 from repro_torch.launch import embed as t_embed  # noqa: E402
 
@@ -188,10 +189,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         convert.state_from_numpy(convert.state_to_numpy(st), cfg, "cuda")
 
 
-def test_unported_options_raise():
-    """What is still unported raises: fit's resilience options (the
-    session controls callback / early_stop / auto_rescale are ported and
-    run) and the CLI's; every flag setting of the config,
+def test_unported_options_raise(tmp_path):
+    """What is still unported raises: the CLI's multi-device options (fit's
+    resilience options and the session controls callback / early_stop /
+    auto_rescale are ported and run); every flag setting of the config,
     ``cand_fused=False`` included, constructs."""
     for kw in (dict(gather_fused=False), dict(scatter_fused=False),
                dict(merge_fused=False), dict(c_hd_rev=2, rev_refresh=1),
@@ -200,15 +201,14 @@ def test_unported_options_raise():
         assert all(getattr(cfg, k) == v for k, v in kw.items())
     X = np.zeros((20, 3), np.float32)
     cfg = tf.FuncSNEConfig(n_points=20, dim_hd=3, k_hd=8, k_ld=4)
-    for kw in (dict(resilience=object()), dict(resume_from="ckpt")):
-        with pytest.raises(NotImplementedError):
-            tf.fit(X, cfg=cfg, device="cpu", **kw)
+    ckdir = str(tmp_path / "ckpt")
     for kw in (dict(callback=lambda it, st: None), dict(early_stop=0.1),
-               dict(auto_rescale=0.1)):
+               dict(auto_rescale=0.1),
+               dict(resilience=ResiliencePolicy(checkpoint_dir=ckdir)),
+               dict(resume_from=ckdir)):
         st, _ = tf.fit(X, cfg=cfg, n_iter=2, device="cpu", **kw)
         assert int(st.step) >= 1
-    for argv in (["--devices", "2"], ["--num-processes", "2"],
-                 ["--checkpoint-dir", "ckpt"], ["--audit-every", "3"]):
+    for argv in (["--devices", "2"], ["--num-processes", "2"]):
         with pytest.raises(NotImplementedError):
             t_embed.main(argv + ["--device", "cpu"])
 
