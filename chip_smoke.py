@@ -7,8 +7,9 @@ Drives the port's main path (``repro_torch``: ``init_state`` and the chunk
 runner with ``default_schedule``, the single-device route of
 ``python -m repro_torch.launch.embed``) at MNIST's shape, n = 70,000 and
 dim_hd = 784, on an MNIST-shaped synthetic dataset, then the paths of the
-later slices (flag paths, NND, the MusicGen-large latents pipeline), and
-checks them:
+later slices (flag paths, NND, the MusicGen-large latents pipeline, the
+resilient ``fit``, the distributed step on grids of ranks), and checks
+them:
 
   (a) build the CUDA kernels from ``src/repro_torch/csrc``; print the card;
   (b) hold each kernel against its plain PyTorch version on the card, at the
@@ -151,6 +152,31 @@ checks them:
       save's host ms, the bytes of a checkpoint, wait(), restore and verify
       ms; and ``repro_torch.examples.dynamic_stream`` on X with
       session-70k's waves (recall of the active rows a wave, events).
+  (m) the distributed step (``make_distributed_step`` through
+      ``runtime.coordinator.fit_elastic``) on the one card: (m2), run in
+      phase (e) where the profiler splits a call by kernel, holds the
+      kernels at the slices of these grids against their plain versions as
+      in phase (b) and times them (recorded from phase (d)'s state through
+      a ``RankView``): B1 on X, B2's LD rescore and B3 on rows
+      35,000-69,999 (rank 1 of (2, 1)), B1 on every row of X[:, 392:]
+      (rank 1 of (1, 2)), and B1 on rows 35,000-69,999 of X[:, :392]
+      (rank 2 of (2, 2), held only); each row's launches are those of the
+      (m3) run of its shape; (m1) collectives on the card,
+      one rank under NCCL (the backend's own calls) and two ranks on
+      cuda:0 under gloo (through ``launch.mesh.Grid``: an int32 all-gather,
+      a bf16 sum, min and max, each exact on CUDA tensors), each backend
+      printed; (m3) mnist-70k over grids, (2, 1)
+      twice and (1, 2) as the two gloo ranks and (1, 1) under NCCL, each
+      M_ITERS steps in chunks of CHUNK with the default schedule and the
+      launch counters at 0 just before: B1, B2 LD and B3 launched on every
+      rank and B2's HD merge never, Y finite, a hash of every state field
+      equal across ranks and across the two (2, 1) runs, recall@32 on
+      (d)'s subsample above RECALL_MIN beside (d)'s and the AUC beside
+      (d)'s, steps/s, and each collective's bytes and ms a step; (m4) a
+      ``NaNChunk`` in rank 1's replica of ``vel`` at step M_FAULT_AT of a
+      (2, 1) run: the reduced probe trips on both ranks, one rollback, Y
+      finite.  Two ranks time-share one card, so no step rate here is a
+      multi-GPU speed.
 
 B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
 2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
@@ -309,6 +335,13 @@ SESSION_ITERS, SESSION_REMOVE_ITERS = 300, 100
 # damaged checkpoint) hits, and the guarded B2 launch a kernel fault
 # replaces (about two fifths into the run)
 L_NAN_CHUNK, L_PREEMPT_CHUNK, L_FAULT_LAUNCH = 3, 6, 300
+# phase (m): steps of each grid's fit_elastic run -- (2, 1) twice and (1, 2)
+# as two gloo ranks on the one card, (1, 1) as one NCCL rank -- the step of
+# the NaN chunk confined to rank 1's replica and that run's steps, and each
+# spawn's hard time limit in seconds
+M_ITERS = {(2, 1): 500, (1, 2): 500, (1, 1): 500}
+M_FAULT_AT, M_FAULT_ITERS = 100, 200
+M_TIMEOUT = 900
 # exact_tsne_grad against torch.autograd's gradient of kl_loss, of max|g|:
 # the same float32 quantities summed in another order over 5,000 columns
 TOL_GRAD_REL = 1e-5
@@ -440,6 +473,161 @@ class Recorder:
             return f
         self.ops = funcsne.Ops(*[rec(name, fn) for name, fn in
                                  zip(funcsne.Ops._fields, funcsne.KERNELS)])
+
+
+class RankView:
+    """One rank's view of a ``(data, model)`` grid, in this process: its
+    axis sizes and indices, and collectives that only keep shapes (a
+    gather tiles its input, a reduction returns it).  Phase (m) runs a
+    step's phases on it through recording ops, to get the kernel calls
+    that rank makes at its row slice."""
+
+    def __init__(self, shape, coords):
+        self.axis_names = ("data", "model")
+        self.shape = dict(zip(self.axis_names, shape))
+        self.coords = dict(zip(self.axis_names, coords))
+
+    def _axes(self, axes):
+        return (axes,) if isinstance(axes, str) else tuple(axes or ())
+
+    def axis_size(self, axes):
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def axis_index(self, axes):
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def all_gather(self, x, axes, tag=None):
+        return torch.cat([x] * self.axis_size(axes))
+
+    def all_reduce(self, x, axes, op="sum", tag=None):
+        return x
+
+
+def collectives_check(rank, world, dev):
+    """Phase (m1) on one rank: a tiled all-gather of int32 and a bf16 sum,
+    min and max over the rank's process group, each against the value it
+    must give exactly.  One rank (NCCL): the backend's own calls.  Two or
+    more: through ``launch.mesh.Grid``.  Returns (backend, what failed)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    backend = dist.get_backend()
+    failed = []
+    ids = torch.arange(5, dtype=torch.int32, device=dev)
+    want_ids = torch.cat([ids + 100 * r for r in range(world)])
+    vals = [((torch.arange(64, device=dev) * 0.37 + r) ** 2).to(
+        torch.bfloat16) for r in range(world)]
+    acc = vals[0].float()
+    for v in vals[1:]:
+        acc = acc + v.float()
+    want_sum = acc.to(torch.bfloat16)
+    mine = ids + 100 * rank
+    if world == 1:
+        parts = [torch.empty_like(mine)]
+        dist.all_gather(parts, mine)
+        got_ids = torch.cat(parts)
+        got_sum = vals[0].clone()
+        dist.all_reduce(got_sum)
+        got_min = torch.tensor(float(rank), device=dev)
+        dist.all_reduce(got_min, op=dist.ReduceOp.MIN)
+        got_max = got_min.clone()
+        dist.all_reduce(got_max, op=dist.ReduceOp.MAX)
+    else:
+        grid = mesh_lib.Grid((world, 1))
+        got_ids = grid.all_gather(mine, "data")
+        got_sum = grid.all_reduce(vals[rank], "data", "sum")
+        r_ = torch.tensor(float(rank), device=dev)
+        got_min = grid.all_reduce(r_, "data", "min")
+        got_max = grid.all_reduce(r_, "data", "max")
+    for name, ok in (("all_gather int32", torch.equal(got_ids, want_ids)),
+                     ("bf16 sum", torch.equal(got_sum, want_sum)),
+                     ("min", float(got_min) == 0.0),
+                     ("max", float(got_max) == world - 1.0)):
+        if not ok:
+            failed.append(name)
+    return backend, failed
+
+
+def mesh_rank(rank, world, dev, jobs, n, dim, rows, sub, chunk):
+    """What every rank of phase (m) runs: ``jobs`` in order, each
+    ``{"kind": "collectives"}`` (m1) or a ``fit_elastic`` run at MNIST's
+    shape (``{"kind": "fit", "model", "iters", "timed", "fault"}``: the
+    launch counters and the collective counters set to 0 just before;
+    ``fault`` a step for a ``NaNChunk`` in the last rank's replica, under a
+    ``ResiliencePolicy``).  A run returns its launches, a hash of every
+    state field, the steps/s of its loop (card synchronised at the first
+    and the last chunk boundary), the collectives' calls, bytes and ms,
+    its policy's events, and on rank 0 the HD lists of ``rows`` and the Y
+    of ``sub``."""
+    import contextlib as ctxlib
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import funcsne
+    from repro_torch.core.resilience import ResiliencePolicy
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.coordinator import fit_elastic
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    out, X = [], None
+    for job in jobs:
+        if job["kind"] == "collectives":
+            out.append(collectives_check(rank, world, dev))
+            continue
+        if X is None:
+            X = torch.from_numpy(synthetic.mnist_like(n=n, dim=dim,
+                                                      seed=0)[0]).to(dev)
+        cfg = funcsne.FuncSNEConfig(n_points=X.shape[0], dim_hd=X.shape[1])
+        hp = funcsne.default_hparams(X.shape[0], device=dev)
+        policy = script = None
+        if job.get("fault") is not None:
+            policy = ResiliencePolicy(max_retries=2)
+            script = faults.FaultScript(faults.NaNChunk(
+                at_step=job["fault"], shard=world - 1, field="vel", rows=4))
+        stamps = []
+
+        def beat(it):
+            sync()
+            stamps.append(time.perf_counter())
+        mesh_lib.reset_collectives()
+        mesh_lib.set_timed(job["timed"])
+        kernels.reset_launches()
+        try:
+            with faults.active(script) if script else ctxlib.nullcontext():
+                st = fit_elastic(X, cfg=cfg, n_iter=job["iters"],
+                                 chunk_size=chunk, hparams=hp,
+                                 model=job["model"], resilience=policy,
+                                 on_boundary=beat, device=dev)
+            sync()
+        finally:
+            mesh_lib.set_timed(False)
+        res = {"launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+               "hashes": {f: hashlib.sha256(
+                   getattr(st, f).cpu().numpy().tobytes()).hexdigest()
+                   for f in funcsne.FuncSNEState._fields},
+               "sps": job["iters"] / (stamps[-1] - stamps[0]),
+               "collectives": {k: list(v) for k, v in
+                               mesh_lib.COLLECTIVES.items()},
+               "events": [] if policy is None else policy.events,
+               "backend": dist.get_backend(), "step": int(st.step),
+               "finite": bool(torch.isfinite(st.Y).all())}
+        if rank == 0:
+            res["hd_rows"] = st.hd_idx[torch.from_numpy(rows).to(dev)].cpu()
+            res["y_sub"] = st.Y[torch.from_numpy(sub).to(dev)].cpu()
+        # the rank's CUDA tensors go before its process group does
+        out.append(res)
+        del st
+    return out
 
 
 def resilience_phase(X, labels, cfg, hp, st_d, sps_d, recall, main_kernels,
@@ -1038,13 +1226,13 @@ def main():
         g_ms = None
         if graphed:
             g_ms = graph_ms(fn, reps)
-            split, events = kernel_split(fn)
-            log(f"    {name}: {g_ms:.4f} ms from CUDA graphs ({b_ms / g_ms:.1%}"
-                f" of the bound); device ms per call by kernel (profiler, 20 "
-                f"calls; events in the trace): " + "; ".join(
-                    f"{k_[:60]} {v_:.4f} ({events[k_]})" for k_, v_ in
-                    sorted(split.items(), key=lambda kv: -kv[1]))
-                + f"; sum {sum(split.values()):.4f}")
+            by_kernel, events = kernel_split(fn)
+            log(f"    {name}: {g_ms:.4f} ms from CUDA graphs "
+                f"({b_ms / g_ms:.1%} of the bound); device ms per call by "
+                "kernel (profiler, 20 calls; events in the trace): "
+                + "; ".join(f"{k_[:60]} {v_:.4f} ({events[k_]})" for k_, v_ in
+                            sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+                + f"; sum {sum(by_kernel.values()):.4f}")
         return g_ms
 
     def b1_entry(case, x, qid, cand, count, tag):
@@ -1134,6 +1322,117 @@ def main():
           nbytes(y, qid, nbr, coef, alpha, *scats, *wsums),
           20.0 * nbr.numel(), errs["ne_forces_scatter"],
           launches["ne_forces_scatter"], graphed=True)
+
+    # (m2) the kernels at the distributed step's slices (phase (m)), held
+    # and timed here, where the profiler splits a call by kernel; recorded
+    # from phase (d)'s final state through a ``RankView``: rank 1 of (2, 1)
+    # scores rows 35,000-69,999 on all of X, rank 1 of (1, 2) every row on
+    # its column block X[:, 392:], and rank 2 of (2, 2) rows 35,000-69,999
+    # on X[:, :392] (held only: no run of (m3) has that grid).  Each row
+    # takes its launches from the (m3) run of its shape: (row, run, counter)
+    half = N // 2
+
+    def slice_calls(shape, coords, state, x):
+        ctx = funcsne.AxisCtx(points=("data",), feat="model",
+                              grid=RankView(shape, coords))
+        rec_ = Recorder(funcsne)
+        base_ = knn.key_salt(state.rng)
+        funcsne._hd_refine(cfg, state, x, base_, rec_.ops, ctx=ctx)
+        funcsne._ld_refine(cfg, state, base_, rec_.ops, ctx)
+        funcsne._forces_update(cfg, state, hp, base_, rec_.ops, ctx)
+        return rec_.calls
+    calls21 = slice_calls((2, 1), (1, 0), st, X)
+    check(set(calls21) == {"pairwise_sqdist_gather_hd", "knn_merge_cand_ld",
+                           "ne_forces_scatter"},
+          f"a grid rank's step called {set(calls21)}")
+    m_rows = []
+    for label, cols, shape, coords, start, run in (
+            ("slice784", slice(None), (2, 1), (1, 0), half, "(2,1) run 1"),
+            ("cols392", slice(392, None), (1, 2), (0, 1), 0, "(1,2)"),
+            ("slice392", slice(None, 392), (2, 2), (1, 0), half, None)):
+        xr_, xq_ = X[:, cols].contiguous(), Xq[:, cols].contiguous()
+        calls_ = (calls21 if shape == (2, 1)
+                  else slice_calls(shape, coords, st, xr_))
+        _, (_, qid, cand), _ = calls_["pairwise_sqdist_gather_hd"]
+        check(qid.shape[0] == N - start and int(qid[0]) == start
+              and int(qid[-1]) == N - 1, f"B1 {label}: rows {qid.shape}")
+        key = gather_key(xq_.shape[1])
+        check(key == b1_key["hd"], f"B1 at {xq_.shape[1]} columns: {key}")
+        kernels.reset_launches()
+        got = pairwise_sqdist_gather(xq_, qid, cand)
+        check(kernels.LAUNCHES[key] == 1
+              and sum(kernels.LAUNCHES.values()) == 1,
+              f"B1 {label}: launches {kernels.LAUNCHES}")
+        check(torch.equal(got, pairwise_sqdist_gather_ref(xq_, qid, cand)),
+              f"B1 {label} not exact on quantised inputs")
+        log(f"[m2] B1 {label} (rank {coords} of {shape}): x "
+            f"{tuple(xr_.shape)}, rows {start}-{N - 1}, C={cand.shape[1]} "
+            f"({key}): exact on quantised inputs")
+        if run is None:
+            got = pairwise_sqdist_gather(xr_, qid, cand)
+            want = pairwise_sqdist_gather_ref(xr_, qid, cand)
+            rel = float(((got - want).abs()
+                         / want.abs().clamp_min(1.0)).max())
+            check(rel <= TOL_SQDIST_REL, f"B1 {label}: relative error {rel}")
+            log(f"    real max rel err {rel:.3e} (tol {TOL_SQDIST_REL})")
+        else:
+            # held on the real inputs (TOL_SQDIST_REL) and timed
+            b1_entry(label, xr_, qid, cand, None, "[m2]")
+            m_rows.append((out[-1], run, b1_key["hd"]))
+        del calls_, got, xr_, xq_
+    # the LD merge on Y on a quarter grid (|y| <= 64): distances exact
+    yq = torch.round(st.Y * (256.0 / float(st.Y.abs().max()))) / 4.0
+    calls21q = slice_calls((2, 1), (1, 0), st._replace(Y=yq), X)
+    _, args_q, kw_q = calls21q["knn_merge_cand_ld"]
+    check(args_q[1].shape[0] == half and int(args_q[1][0]) == half,
+          "B2 LD: not the row slice")
+    kernels.reset_launches()
+    got = knn_merge_cand(*args_q, **kw_q)
+    check(kernels.LAUNCHES[ld_key["knn_merge_cand"]] == 1
+          and sum(kernels.LAUNCHES.values()) == 1,
+          f"B2 LD slice: launches {kernels.LAUNCHES}")
+    want = knn_merge_cand_ref(*args_q, **kw_q)
+    for g, w, name in zip(got, want, ("idx", "d", "improved")):
+        check(torch.equal(g, w), f"B2 LD slice {name} differs")
+    _, args_r, kw_r = calls21["knn_merge_cand_ld"]
+    got = knn_merge_cand(*args_r, **kw_r)
+    want = knn_merge_cand_ref(*args_r, **kw_r)
+    fin = torch.isfinite(want[1])
+    err_b2 = max_err(got[1][fin], want[1][fin])
+    log(f"[m2] B2 LD rescore, rows {half}-{N - 1}: idx/d/improved exact on "
+        f"a quarter grid of Y; on the real Y max abs err of d {err_b2:.3e}, "
+        f"ids equal on {float((got[0] == want[0]).float().mean()):.6f} of "
+        "slots")
+    b2_entry(f"{ld_key['knn_merge_cand']}_slice", calls21["knn_merge_cand_ld"],
+             err_b2, None, "[m2]", graphed=True)
+    m_rows.append((out[-1], "(2,1) run 1", ld_key["knn_merge_cand"]))
+    _, (y, qid, nbr, coef, alpha), kw = calls21["ne_forces_scatter"]
+    check(qid.shape[0] == half and int(qid[0]) == half, "B3: not the slice")
+    got = ne_forces_scatter(y, qid, nbr, coef, alpha, **kw)
+    again = ne_forces_scatter(y, qid, nbr, coef, alpha, **kw)
+    scats, wsums = ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw)
+    check(all(g.shape == (N, cfg.dim_ld) for g in got[0]),
+          "B3 slice: fields not over all rows")
+    for g, a in zip(got[0] + got[1], again[0] + again[1]):
+        check(torch.equal(g, a), "B3 slice not bit-identical over launches")
+    err_b3 = 0.0
+    for g, w in zip(got[0] + got[1], scats + wsums):
+        e = max_err(g, w)
+        check(e <= TOL_FORCE_REL * float(w.abs().max()),
+              f"B3 slice err {e}")
+        err_b3 = max(err_b3, e)
+    log(f"[m2] B3, rows {half}-{N - 1}, fields over {N} rows: bit-identical "
+        f"over two launches; max abs err {err_b3:.3e} (tol {TOL_FORCE_REL} "
+        "of each field's largest entry)")
+    entry("ne_forces_scatter_slice", "src/repro_torch/csrc/ne_forces.cu",
+          "src/repro/kernels/ne_forces/kernel.py:451",
+          lambda: ne_forces_scatter(y, qid, nbr, coef, alpha, **kw),
+          lambda: ne_forces_scatter_ref(y, qid, nbr, coef, alpha, **kw), 50,
+          nbytes(y, qid, nbr, coef, alpha, *scats, *wsums),
+          20.0 * nbr.numel(), err_b3, None, tag="[m2]", graphed=True)
+    m_rows.append((out[-1], "(2,1) run 1", "ne_forces_scatter"))
+    del calls21, calls21q, yq, got, again, want, scats, wsums
+    torch.cuda.empty_cache()
 
     # where a step's time goes: each phase's wall time (host clock around
     # synchronised calls) at the final state, then device time by kernel
@@ -2835,6 +3134,98 @@ def main():
     # ---- (l) resilience and recovery ----------------------------------------
     resilience_phase(X, y_np, cfg, hp, st, ITERS / t_run, recall,
                      main_kernels, hd_key, ld_key, card)
+
+    # ---- (m) the distributed step on the card -------------------------------
+    from repro_torch.launch import mesh as mesh_lib
+    t_m = time.perf_counter()
+    torch.cuda.empty_cache()
+    # (m1), (m3), (m4): gloo ranks on the one card, then one NCCL rank
+    rows_np, sub_np = rows.cpu().numpy(), sub.cpu().numpy()
+    fit_job = {"kind": "fit", "timed": False, "fault": None}
+    jobs_g = [{"kind": "collectives"},
+              dict(fit_job, model=1, iters=M_ITERS[(2, 1)]),
+              dict(fit_job, model=1, iters=M_ITERS[(2, 1)], timed=True),
+              dict(fit_job, model=2, iters=M_ITERS[(1, 2)], timed=True),
+              dict(fit_job, model=1, iters=M_FAULT_ITERS, fault=M_FAULT_AT)]
+    jobs_n = [{"kind": "collectives"},
+              dict(fit_job, model=1, iters=M_ITERS[(1, 1)], timed=True)]
+    results = {}
+    for world, jobs in ((2, jobs_g), (1, jobs_n)):
+        backend = mesh_lib.pick_backend(dev, world)
+        t0 = time.perf_counter()
+        results[world] = mesh_lib.run_ranks(
+            mesh_rank, world, (jobs, N, DIM, rows_np, sub_np, CHUNK),
+            device=dev, backend=backend, timeout=M_TIMEOUT)
+        log(f"[m] {world} rank(s) on {torch.cuda.device_count()} card(s) "
+            f"under {backend} (rule: NCCL when every rank has a card of its "
+            f"own, else gloo): {len(jobs)} jobs in "
+            f"{time.perf_counter() - t0:.1f}s")
+    for world in (2, 1):
+        for rank, out_r in enumerate(results[world]):
+            backend, failed = out_r[0]
+            check(not failed, f"(m1) {world} ranks {backend}, rank {rank}: "
+                  f"{failed}")
+        log(f"[m1] collectives on the card, {world} rank(s) under "
+            f"{results[world][0][0][0]}: all_gather int32, bf16 sum, min, "
+            "max exact on CUDA tensors")
+    expected = {b1_key["hd"], b1_key["ld"], ld_key["knn_merge_cand"],
+                "ne_forces_scatter"}
+    runs = {"(2,1) run 1": (2, 1), "(2,1) run 2": (2, 2),
+            "(1,2)": (2, 3), "(1,1)": (1, 1)}
+    counts = {}
+    for label, (world, j) in runs.items():
+        per_rank = [out_r[j] for out_r in results[world]]
+        iters = (jobs_g if world == 2 else jobs_n)[j]["iters"]
+        for rank, r_ in enumerate(per_rank):
+            la = r_["launches"]
+            check(set(la) == expected, f"{label} rank {rank}: launched {la}")
+            check(la["ne_forces_scatter"] == iters
+                  and la[ld_key["knn_merge_cand"]] == iters
+                  and la[b1_key["ld"]] == 1 and la[b1_key["hd"]] > 1,
+                  f"{label} rank {rank}: launches {la}")
+            check(r_["finite"] and r_["step"] == iters,
+                  f"{label} rank {rank}: Y finite {r_['finite']}, step "
+                  f"{r_['step']}")
+            check(r_["hashes"] == per_rank[0]["hashes"],
+                  f"{label}: rank {rank}'s replica differs from rank 0's")
+        counts[label] = per_rank[-1]["launches"]
+        r0 = per_rank[0]
+        rec_m = float((r0["hd_rows"].to(dev)[:, :, None].long()
+                       == true_idx.long()[:, None, :]).any(-1).float().mean())
+        auc_m = float(embedding_quality(X[sub], r0["y_sub"].to(dev)))
+        if iters == ITERS:
+            check(rec_m > RECALL_MIN, f"{label}: recall {rec_m}")
+        coll = "; ".join(
+            f"{tag} {b / iters / 1e6:.4f} MB"
+            + (f" {ms / iters:.3f} ms" if ms else "") + f" ({c} calls)"
+            for tag, (c, b, ms) in sorted(r0["collectives"].items()))
+        log(f"[m3] mnist-70k {label} under {r0['backend']}: {iters} steps at "
+            f"{r0['sps']:.1f} steps/s a rank"
+            + (" (ranks time-share one card: not a multi-GPU speed)"
+               if world > 1 else "")
+            + f"; recall@{cfg.k_hd} {rec_m:.4f} (phase (d) "
+            f"{rec1:.4f}), AUC {auc_m:.4f} (phase (d) {auc:.4f}); launches "
+            f"per rank {counts[label]}; replicas bit-identical across "
+            f"{len(per_rank)} rank(s); per step on rank 0: "
+            + (coll or "no collective (one rank)"))
+    a_, b_ = results[2][0][1], results[2][0][2]
+    check(a_["hashes"] == b_["hashes"], "(2,1): two runs differ")
+    log("[m3] (2,1): the two runs' states bit-identical (hash of every field)")
+    for rank, out_r in enumerate(results[2]):
+        r_ = out_r[4]
+        kinds = [e["kind"] for e in r_["events"]]
+        check(kinds == ["rollback"] and r_["finite"]
+              and r_["step"] == M_FAULT_ITERS
+              and "finite_frac" in r_["events"][0]["reason"],
+              f"(m4) rank {rank}: events {r_['events']}")
+    log(f"[m4] NaNChunk(shard=1, field=vel) at step {M_FAULT_AT} of a (2,1) "
+        f"run: the reduced probe tripped on both ranks "
+        f"({results[2][0][4]['events'][0]['reason']}), one rollback, Y "
+        f"finite after {M_FAULT_ITERS} steps")
+    # (m2)'s rows take the launches of the runs that run each shape
+    for row, run, key in m_rows:
+        row["launches"] = counts[run][key]
+    log(f"[m] phase (m) took {time.perf_counter() - t_m:.1f}s")
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 

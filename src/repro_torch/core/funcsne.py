@@ -1,4 +1,5 @@
-"""FUnc-SNE's single-device path (port of ``repro.core.funcsne``).
+"""FUnc-SNE's step, chunk runner, fit and distributed step (port of
+``repro.core.funcsne``).
 
 One ``funcsne_step`` does, in the JAX package's order:
   1. the gate: refine the HD lists with probability 0.05 + 0.95 E[N_new/N];
@@ -37,6 +38,21 @@ Python loop over steps; the gate's branch and the reverse-table cadence are
 one host sync per step.  On the threefry path that sync also fetches the
 key words, so the scalar key chain (``fold_in``, ``split``, the gate's
 ``bernoulli``) runs on the host and only the (n, c) draws on the device.
+
+Distribution (``make_distributed_step``): one process a rank on a
+``repro_torch.launch.mesh.Grid``, the state replicated on every rank.
+Each rank owns a contiguous row slice per phase (the HD refinement: the
+``points`` axes; the sigma refresh, LD refinement and forces: points x
+feat), and the slices are reassembled with tiled all-gathers and one
+force all-reduce.  X is split by columns over the ``feat`` axis and the
+squared HD distances are summed over it.  ``ctx=AxisCtx()`` (no axes) is
+the single-device program, so both paths share this code.  The wire
+formats are the reference's: the force sum crosses in bf16 after a
+float32 local accumulation (H10a), ``ld_d`` is never gathered (H10b: a
+zeros placeholder, re-derived at the next refinement), and ``hd_d``
+crosses in bf16 (H11).  Every rank reads its own replica for the host
+decisions (the gate, the sigma and reverse-table cadences); the replicas
+are identical, so the decisions agree.
 """
 from __future__ import annotations
 
@@ -45,7 +61,7 @@ import dataclasses
 import functools
 import time
 import warnings
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -186,25 +202,76 @@ def default_hparams(n: int, *, alpha=1.0, perplexity=30.0, lr=None,
                    f32(attraction), f32(repulsion), f32(exaggeration))
 
 
+class AxisCtx(NamedTuple):
+    """Grid axis names; all None -> single-device execution.  ``grid`` is
+    the :class:`~repro_torch.launch.mesh.Grid` the names refer to."""
+    points: Optional[tuple] = None    # axes sharding KNN-phase rows
+    feat: Optional[str] = None        # axis sharding the HD feature dim
+    grid: Any = None
+
+    @property
+    def all_rows(self) -> Optional[tuple]:
+        if self.points is None:
+            return None
+        return self.points + ((self.feat,) if self.feat else ())
+
+
 def _take(arr, idx):
     """Gather rows with SENTINEL-safe clipping."""
     return arr[idx.long().clamp(0, arr.shape[0] - 1)]
 
 
-def _ids(st: FuncSNEState):
-    return torch.arange(st.Y.shape[0], dtype=torch.int32, device=st.Y.device)
+def _phase_rows(n: int, axes, ctx: AxisCtx):
+    """(start, n_local) of this rank's contiguous row slice for a phase:
+    ``n // shards`` rows, so rows past ``shards * (n // shards)`` belong to
+    no rank's slice."""
+    if axes is None:
+        return 0, n
+    n_loc = n // ctx.grid.axis_size(axes)
+    return ctx.grid.axis_index(axes) * n_loc, n_loc
+
+
+def _rows(t, start: int, n_loc: int):
+    """Rows ``[start, start + n_loc)`` of ``t`` (``t`` itself when that is
+    all of it)."""
+    if start == 0 and n_loc == t.shape[0]:
+        return t
+    return t[start:start + n_loc]
+
+
+def _slice_ids(start: int, n_loc: int, device):
+    return start + torch.arange(n_loc, dtype=torch.int32, device=device)
+
+
+def _gather_rows(local, full, axes, ctx: AxisCtx, tag: str):
+    """Reassemble per-rank row slices of ``full``'s rows (a tiled all-gather
+    along ``axes``, cast to ``full``'s dtype); rows past the slices keep
+    ``full``'s values."""
+    if axes is None:
+        return local
+    got = ctx.grid.all_gather(local, axes, tag=tag).to(full.dtype)
+    if got.shape[0] == full.shape[0]:
+        return got
+    return torch.cat([got, full[got.shape[0]:]])
 
 
 # --------------------------------------------------------------------------
 # Phases
 
 
-def _row_sqdist(cfg: FuncSNEConfig, X, ids, cand, ops: Ops):
+def _row_sqdist(cfg: FuncSNEConfig, X, ids, cand, ops: Ops,
+                ctx: AxisCtx = AxisCtx()):
     """Squared HD distances rows -> candidates: B1 on indices, or with
-    ``gather_fused=False`` B6 on the pre-gathered rows."""
+    ``gather_fused=False`` B6 on the pre-gathered rows; on a grid each rank
+    scores its column block of X and the partial sums add up over the
+    feat axis."""
     if cfg.gather_fused:
-        return ops.pairwise_sqdist_gather(X, ids, cand)
-    return ops.pairwise_sqdist(X[ids.long()], _take(X, cand))
+        d = ops.pairwise_sqdist_gather(X, ids, cand)
+    else:
+        d = ops.pairwise_sqdist(X[ids.long()], _take(X, cand))
+    if ctx.feat is not None:
+        d = ctx.grid.all_reduce(d, ctx.feat, "sum", tag="cand_d")
+    return d
 
 
 def _rev_update(cfg: FuncSNEConfig, st: FuncSNEState, fill):
@@ -222,68 +289,93 @@ def _rev_update(cfg: FuncSNEConfig, st: FuncSNEState, fill):
 
 
 def _hd_refine(cfg: FuncSNEConfig, st: FuncSNEState, X, rng, ops: Ops,
-               rev_due: bool = False):
+               rev_due: bool = False, ctx: AxisCtx = AxisCtx()):
     """HD refinement; ``rng`` is the base salt (counter RNG) or the step's
-    threefry key, and ``rev_due`` rebuilds the reverse table first."""
+    threefry key, and ``rev_due`` rebuilds the reverse table first.
+
+    On a grid the rank refines its ``points`` row slice.  The in-kernel
+    merge (B2) needs full distances, so with ``ctx.feat`` set (always, on
+    a grid) the candidates are drawn on their own, scored by B1 on the
+    rank's column block, summed over the feat axis and merged by
+    ``knn.merge_knn``."""
     n = cfg.n_points
-    ids = _ids(st)
+    start, n_loc = _phase_rows(n, ctx.points, ctx)
+    ids = _slice_ids(start, n_loc, st.Y.device)
     dev = ids.device
-    use_kernel = cfg.merge_fused and cfg.gather_fused
+    hd_l = _rows(st.hd_idx, start, n_loc)
+    hd_d_l = _rows(st.hd_d, start, n_loc)
+    ld_l = _rows(st.ld_idx, start, n_loc)
+    use_kernel = cfg.merge_fused and cfg.gather_fused and ctx.feat is None
     if cfg.cand_fused:
+        # counter draws keyed on global row ids: no fold by rank needed
         salt = knn.hash3(rng, st.step, _TAG_HD)
         if cfg.c_hd_rev and rev_due:
             st = _rev_update(cfg, st, knn.counter_fill(
                 knn.hash3(rng, st.step, _TAG_REV), n, cfg.c_hd_rev))
-        rev = st.rev_idx if cfg.c_hd_rev else None
+        rev = _rows(st.rev_idx, start, n_loc) if cfg.c_hd_rev else None
         sources = (("two_hop", 0, 0, cfg.c_hd_non),
                    ("one_hop", 1, cfg.c_hd_ld),
                    ("two_hop", 1, 1, cfg.c_hd_ld_non),
                    ("uniform", cfg.c_hd_rand),
                    ("extra", cfg.c_hd_rev))
-        firsts, seconds = (st.hd_idx, st.ld_idx), (st.hd_idx, st.ld_idx)
+        firsts, seconds = (hd_l, ld_l), (st.hd_idx, st.ld_idx)
         if use_kernel:
             new_idx, new_d, improved = ops.knn_merge_cand(
-                X, ids, st.hd_idx, st.hd_d, salt=salt, sources=sources,
+                X, ids, hd_l, hd_d_l, salt=salt, sources=sources,
                 first_tables=firsts, second_tables=seconds, extra=rev,
                 active=st.active)
-            return _hd_merged(cfg, st, new_idx, new_d, improved)
+            return _hd_merged(cfg, st, new_idx, new_d, improved, ctx)
         cand = knn.counter_candidates(salt, ids, sources, firsts, seconds,
                                       n_total=n, extra=rev)
     else:
+        rng0 = rng
+        if ctx.points is not None:
+            rng = threefry.fold_in(rng, ctx.grid.axis_index(ctx.points))
         r = threefry.split(rng, 5)
         parts = []
         if cfg.c_hd_non:
-            parts.append(knn.sample_hops(r[0], st.hd_idx, st.hd_idx, ids,
+            parts.append(knn.sample_hops(r[0], hd_l, st.hd_idx, ids,
                                          cfg.c_hd_non))
         if cfg.c_hd_ld:
-            parts.append(knn.sample_direct(r[1], st.ld_idx, cfg.c_hd_ld))
+            parts.append(knn.sample_direct(r[1], ld_l, cfg.c_hd_ld))
         if cfg.c_hd_ld_non:
-            parts.append(knn.sample_hops(r[2], st.ld_idx, st.ld_idx, ids,
+            parts.append(knn.sample_hops(r[2], ld_l, st.ld_idx, ids,
                                          cfg.c_hd_ld_non))
         if cfg.c_hd_rand:
-            parts.append(knn.sample_uniform(r[3], n, n, cfg.c_hd_rand,
+            parts.append(knn.sample_uniform(r[3], n_loc, n, cfg.c_hd_rand,
                                             device=dev))
         if cfg.c_hd_rev:
             if rev_due:
+                # the table is replicated, so its fill is the same on every
+                # rank: on a grid it comes from the key before the fold
+                fill_key = r[4] if ctx.points is None \
+                    else threefry.split(rng0, 5)[4]
                 st = _rev_update(cfg, st, knn.sample_uniform(
-                    r[4], n, n, cfg.c_hd_rev, device=dev))
-            parts.append(st.rev_idx)
+                    fill_key, n, n, cfg.c_hd_rev, device=dev))
+            parts.append(_rows(st.rev_idx, start, n_loc))
         cand = torch.cat(parts, dim=1)
     cand_active = _take(st.active, cand)
     if use_kernel:
         new_idx, new_d, improved = ops.knn_merge(
-            X, ids, st.hd_idx, st.hd_d, cand, cand_active=cand_active)
+            X, ids, hd_l, hd_d_l, cand, cand_active=cand_active)
     else:
-        valid = knn.dedup_candidates(ids, st.hd_idx, cand) & cand_active
-        cand_d = _row_sqdist(cfg, X, ids, cand, ops)
-        new_idx, new_d, improved = knn.merge_knn(st.hd_idx, st.hd_d, cand,
+        valid = knn.dedup_candidates(ids, hd_l, cand) & cand_active
+        cand_d = _row_sqdist(cfg, X, ids, cand, ops, ctx)
+        new_idx, new_d, improved = knn.merge_knn(hd_l, hd_d_l, cand,
                                                  cand_d, valid)
-    return _hd_merged(cfg, st, new_idx, new_d, improved)
+    return _hd_merged(cfg, st, new_idx, new_d, improved, ctx)
 
 
 def _hd_merged(cfg: FuncSNEConfig, st: FuncSNEState, new_idx, new_d,
-               improved):
-    """The HD merge's result into the state, with the E[N_new/N] EMA."""
+               improved, ctx: AxisCtx = AxisCtx()):
+    """The HD merge's result into the state, with the E[N_new/N] EMA; on a
+    grid the row slices are gathered first, ``hd_d`` in bf16 (H11)."""
+    if ctx.points is not None:
+        new_idx = _gather_rows(new_idx, st.hd_idx, ctx.points, ctx, "hd_idx")
+        new_d = _gather_rows(new_d.to(torch.bfloat16), st.hd_d, ctx.points,
+                             ctx, "hd_d")
+        improved = _gather_rows(improved, torch.zeros_like(st.new_flag),
+                                ctx.points, ctx, "improved")
     n_act = st.active.float().sum().clamp_min(1.0)
     frac = (improved & st.active).float().sum() / n_act
     ema = cfg.ema_decay * st.ema_new_frac + (1.0 - cfg.ema_decay) * frac
@@ -291,71 +383,95 @@ def _hd_merged(cfg: FuncSNEConfig, st: FuncSNEState, new_idx, new_d,
                        new_flag=st.new_flag | improved, ema_new_frac=ema)
 
 
-def _sigma_refresh(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams):
-    valid = torch.isfinite(st.hd_d) & (st.hd_idx != SENTINEL)
-    valid &= _take(st.active, st.hd_idx)
-    solved = affinities.solve_beta(st.hd_d, hp.perplexity, valid=valid,
-                                   beta0=st.beta, n_iter=24)
-    return st._replace(beta=torch.where(st.new_flag, solved, st.beta),
-                       new_flag=torch.zeros_like(st.new_flag))
+def _sigma_refresh(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams,
+                   ctx: AxisCtx = AxisCtx()):
+    start, n_loc = _phase_rows(cfg.n_points, ctx.all_rows, ctx)
+    hd_d_l = _rows(st.hd_d, start, n_loc)
+    hd_i_l = _rows(st.hd_idx, start, n_loc)
+    beta_l = _rows(st.beta, start, n_loc)
+    valid = torch.isfinite(hd_d_l) & (hd_i_l != SENTINEL)
+    valid &= _take(st.active, hd_i_l)
+    solved = affinities.solve_beta(hd_d_l, hp.perplexity, valid=valid,
+                                   beta0=beta_l, n_iter=24)
+    beta_l = torch.where(_rows(st.new_flag, start, n_loc), solved, beta_l)
+    return st._replace(
+        beta=_gather_rows(beta_l, st.beta, ctx.all_rows, ctx, "beta"),
+        new_flag=torch.zeros_like(st.new_flag))
 
 
-def _ld_refine(cfg: FuncSNEConfig, st: FuncSNEState, rng, ops: Ops):
+def _ld_refine(cfg: FuncSNEConfig, st: FuncSNEState, rng, ops: Ops,
+               ctx: AxisCtx = AxisCtx()):
     n = cfg.n_points
-    ids = _ids(st)
+    start, n_loc = _phase_rows(n, ctx.all_rows, ctx)
+    ids = _slice_ids(start, n_loc, st.Y.device)
+    ld_l = _rows(st.ld_idx, start, n_loc)
+    hd_l = _rows(st.hd_idx, start, n_loc)
     use_kernel = cfg.merge_fused and cfg.gather_fused
-    cur_valid = (st.ld_idx != SENTINEL) & _take(st.active, st.ld_idx)
+    cur_valid = (ld_l != SENTINEL) & _take(st.active, ld_l)
     if cfg.cand_fused:
         salt = knn.hash3(rng, st.step, _TAG_LD)
         sources = (("two_hop", 0, 0, cfg.c_ld_non),
                    ("one_hop", 1, cfg.c_ld_hd),
                    ("uniform", cfg.c_ld_rand))
-        firsts, seconds = (st.ld_idx, st.hd_idx), (st.ld_idx,)
+        firsts, seconds = (ld_l, hd_l), (st.ld_idx,)
         if use_kernel:
             new_idx, new_d, _ = ops.knn_merge_cand(
-                st.Y, ids, st.ld_idx, None, salt=salt, sources=sources,
+                st.Y, ids, ld_l, None, salt=salt, sources=sources,
                 first_tables=firsts, second_tables=seconds, active=st.active,
                 cur_valid=cur_valid)
-            return st._replace(ld_idx=new_idx, ld_d=new_d)
+            return _ld_merged(st, new_idx, new_d, ctx)
         cand = knn.counter_candidates(salt, ids, sources, firsts, seconds,
                                       n_total=n)
     else:
+        if ctx.all_rows is not None:
+            rng = threefry.fold_in(rng, ctx.grid.axis_index(ctx.all_rows))
         r = threefry.split(rng, 3)
         parts = []
         if cfg.c_ld_non:
-            parts.append(knn.sample_hops(r[0], st.ld_idx, st.ld_idx, ids,
+            parts.append(knn.sample_hops(r[0], ld_l, st.ld_idx, ids,
                                          cfg.c_ld_non))
         if cfg.c_ld_hd:
             # HD neighbours: stable LD candidates unaffected by the motion
-            parts.append(knn.sample_direct(r[1], st.hd_idx, cfg.c_ld_hd))
+            parts.append(knn.sample_direct(r[1], hd_l, cfg.c_ld_hd))
         if cfg.c_ld_rand:
-            parts.append(knn.sample_uniform(r[2], n, n, cfg.c_ld_rand,
+            parts.append(knn.sample_uniform(r[2], n_loc, n, cfg.c_ld_rand,
                                             device=ids.device))
         cand = torch.cat(parts, dim=1)
     cand_active = _take(st.active, cand)
     if use_kernel:
-        new_idx, new_d, _ = ops.knn_merge(st.Y, ids, st.ld_idx, None, cand,
+        new_idx, new_d, _ = ops.knn_merge(st.Y, ids, ld_l, None, cand,
                                           cand_active=cand_active,
                                           cur_valid=cur_valid)
-        return st._replace(ld_idx=new_idx, ld_d=new_d)
-    valid = knn.dedup_candidates(ids, st.ld_idx, cand) & cand_active
+        return _ld_merged(st, new_idx, new_d, ctx)
+    valid = knn.dedup_candidates(ids, ld_l, cand) & cand_active
     # re-score the current rows too: the embedding moved since the merge
-    k = st.ld_idx.shape[1]
+    k = ld_l.shape[1]
     if cfg.gather_fused:
         both = ops.pairwise_sqdist_gather(st.Y, ids,
-                                          torch.cat([st.ld_idx, cand], dim=1))
+                                          torch.cat([ld_l, cand], dim=1))
         cur_d, cand_d = both[:, :k], both[:, k:]
     else:
         y_l = st.Y[ids.long()]
-        cur_d = ((_take(st.Y, st.ld_idx) - y_l[:, None, :]) ** 2).sum(-1)
+        cur_d = ((_take(st.Y, ld_l) - y_l[:, None, :]) ** 2).sum(-1)
         cand_d = ((_take(st.Y, cand) - y_l[:, None, :]) ** 2).sum(-1)
     cur_d = torch.where(cur_valid, cur_d, torch.inf)
-    new_idx, new_d, _ = knn.merge_knn(st.ld_idx, cur_d, cand, cand_d, valid)
-    return st._replace(ld_idx=new_idx, ld_d=new_d)
+    new_idx, new_d, _ = knn.merge_knn(ld_l, cur_d, cand, cand_d, valid)
+    return _ld_merged(st, new_idx, new_d, ctx)
+
+
+def _ld_merged(st: FuncSNEState, new_idx, new_d, ctx: AxisCtx):
+    """The LD merge's result into the state: on a grid the lists are
+    gathered and ``ld_d`` is not (H10b: it is re-derived from Y at the next
+    refinement, so a zeros placeholder stands in)."""
+    if ctx.all_rows is None:
+        return st._replace(ld_idx=new_idx, ld_d=new_d)
+    return st._replace(
+        ld_idx=_gather_rows(new_idx, st.ld_idx, ctx.all_rows, ctx, "ld_idx"),
+        ld_d=torch.zeros_like(st.ld_d))
 
 
 def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
-                   ops: Ops):
+                   ops: Ops, ctx: AxisCtx = AxisCtx()):
     """Forces, the Z estimate and the gains/momentum update.
 
     The default path bins every edge in B3 (deterministic fixed point).
@@ -364,24 +480,35 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
     sum over [rows, HD edges, LD edges], the JAX package's three
     ``.at[].add`` calls in their order; it adds each row's terms in that
     fixed order, so both paths repeat bit for bit on the card.
+
+    On a grid the rank computes the forces of its points x feat row slice
+    into a full (N, d) buffer (float32), which is summed over the grid in
+    bf16 (H10a), as is the Z estimate (float32); every rank then applies
+    the same update to its replica.
     """
     n, d = cfg.n_points, cfg.dim_ld
-    ids = _ids(st)
-    act_l = st.active
+    start, n_loc = _phase_rows(n, ctx.all_rows, ctx)
+    ids = _slice_ids(start, n_loc, st.Y.device)
+    if ctx.all_rows is not None and not cfg.cand_fused:
+        rng = threefry.fold_in(rng, ctx.grid.axis_index(ctx.all_rows))
+    hd_i = _rows(st.hd_idx, start, n_loc)
+    hd_d = _rows(st.hd_d, start, n_loc)
+    ld_i = _rows(st.ld_idx, start, n_loc)
+    act_l = _rows(st.active, start, n_loc)
     n_act = st.active.float().sum().clamp_min(2.0)
 
     # attraction over the HD set: coef = p_{j|i} / (2N)  (Eq. 1)
-    hd_valid = torch.isfinite(st.hd_d) & (st.hd_idx != SENTINEL)
-    hd_valid &= _take(st.active, st.hd_idx)
-    p = affinities.p_rows(st.hd_d, st.beta, valid=hd_valid)
+    hd_valid = torch.isfinite(hd_d) & (hd_i != SENTINEL)
+    hd_valid &= _take(st.active, hd_i)
+    p = affinities.p_rows(hd_d, _rows(st.beta, start, n_loc), valid=hd_valid)
     coef_a = torch.where(hd_valid & act_l[:, None], p, 0.0) / (2.0 * n_act)
 
     # repulsion over the LD set; 0.5 because each directed edge acts on
     # both endpoints
-    ld_valid = (st.ld_idx != SENTINEL) & _take(st.active, st.ld_idx)
+    ld_valid = (ld_i != SENTINEL) & _take(st.active, ld_i)
     coef_r = 0.5 * (ld_valid & act_l[:, None]).float()
 
-    nbr = [st.hd_idx, st.ld_idx]
+    nbr = [hd_i, ld_i]
     coef = [coef_a, coef_r]
     segments = (("attraction", cfg.k_hd), ("repulsion", cfg.k_ld))
     back = (True, True)
@@ -394,7 +521,7 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
                                  device=ids.device)[None, :]
             neg = knn.counter_randint(salt, ids[:, None], draws, n)
         else:
-            neg = knn.sample_uniform(rng, n, n, cfg.n_negatives,
+            neg = knn.sample_uniform(rng, n_loc, n, cfg.n_negatives,
                                      device=ids.device)
         neg = torch.where(neg == ids[:, None], (neg + 1) % n, neg)
         nbr.append(neg)
@@ -424,6 +551,8 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
     z_est = 2.0 * wsums[1].sum()
     if have_neg:
         z_est = z_est + scale_neg * wsums[2].sum()
+    if ctx.all_rows is not None:
+        z_est = ctx.grid.all_reduce(z_est, ctx.all_rows, "sum", tag="z")
     z_est = z_est.clamp_min(1e-8)
     zhat = torch.where(st.step == 0, z_est,
                        cfg.z_ema_decay * st.zhat
@@ -441,15 +570,18 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
         else:
             agg_q = attr_s * aggs[0] + rep_s * aggs[1]
         # each directed edge also acts on its neighbour row (int32 ids)
-        tgt = [ids] + [i.clamp(0, n - 1).reshape(-1)
-                       for i in (st.hd_idx, st.ld_idx)]
+        tgt = [ids] + [i.clamp(0, n - 1).reshape(-1) for i in (hd_i, ld_i)]
         val = [agg_q] + [-(s * edge).reshape(-1, d)
                          for edge, s in ((edges[0], attr_s),
                                          (edges[1], rep_s))]
         buf = ops.segment_sum(torch.cat(tgt), torch.cat(val), n)
+    if ctx.all_rows is not None:
+        # H10a: accumulated in float32 here, summed over the wire in bf16
+        buf = ctx.grid.all_reduce(buf.to(torch.bfloat16), ctx.all_rows,
+                                  "sum", tag="forces").float()
     dY = 4.0 * buf
 
-    # t-SNE gains + momentum
+    # t-SNE gains + momentum (the same update on every replica)
     act = st.active[:, None]
     same = torch.sign(dY) == torch.sign(st.vel)
     gains = torch.where(same, st.gains + 0.2, st.gains * 0.8)
@@ -463,11 +595,13 @@ def _forces_update(cfg: FuncSNEConfig, st: FuncSNEState, hp: HParams, rng,
 
 
 def funcsne_step(cfg: FuncSNEConfig, st: FuncSNEState, X, hp: HParams,
-                 ops: Ops = KERNELS) -> FuncSNEState:
+                 ops: Ops = KERNELS, ctx: AxisCtx = AxisCtx()) -> FuncSNEState:
     """One FUnc-SNE iteration (see the module docstring).
 
     ``ops`` selects the kernels (default) or the plain versions; the state
-    and ``X`` stay on their device either way.
+    and ``X`` stay on their device either way.  ``ctx`` names the grid
+    axes (:func:`make_distributed_step`); on a grid ``X`` is the rank's
+    column block and every rank steps its replica of the state.
     """
     # stochastic HD refinement: p = 0.05 + 0.95 E[N_new/N]  (paper Sec. 3)
     p_ref = cfg.min_refresh_prob \
@@ -491,14 +625,14 @@ def funcsne_step(cfg: FuncSNEConfig, st: FuncSNEState, X, hp: HParams,
         do_hd = bool(threefry.bernoulli(r_gate, p_host))
     if do_hd:
         st = _hd_refine(cfg, st, X, r_hd, ops,
-                        rev_due=step - rev_step >= cfg.rev_refresh)
+                        rev_due=step - rev_step >= cfg.rev_refresh, ctx=ctx)
     # The JAX step also requires any(new_flag); without a flag the refresh
     # changes nothing (beta is kept where no flag is set, and the cleared
     # flags are already clear), so that host sync is skipped here.
     if step % cfg.sigma_refresh_every == 0:
-        st = _sigma_refresh(cfg, st, hp)
-    st = _ld_refine(cfg, st, r_ld, ops)
-    st = _forces_update(cfg, st, hp, r_force, ops)
+        st = _sigma_refresh(cfg, st, hp, ctx)
+    st = _ld_refine(cfg, st, r_ld, ops, ctx)
+    st = _forces_update(cfg, st, hp, r_force, ops, ctx)
     return st._replace(step=st.step + 1)
 
 
@@ -674,6 +808,25 @@ def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
     its one read a chunk.  ``health_metrics=False`` skips it: the three
     fields keep their initial values 1.0, 0.0 and -1.
     """
+    return _chunk_fn(cfg, T, schedule=schedule, n_iter=n_iter,
+                     snapshot_every=snapshot_every,
+                     health_metrics=health_metrics)
+
+
+def _chunk_fn(cfg: FuncSNEConfig, T: int, *, schedule=None, n_iter=None,
+              snapshot_every: int = 0, ctx: AxisCtx = AxisCtx(),
+              health_metrics: bool = True, health_reduce: bool = True):
+    """The chunk runner of :func:`make_chunked_step` on ``ctx``'s grid.
+
+    On a grid with ``health_reduce`` (the default) each rank probes only
+    its own points x feat row slice of Y (the rows whose updates it
+    computed) and the scalars are reduced over the grid once a chunk:
+    ``finite_frac`` by min, ``y_max_abs`` by max, ``bad_step`` to the
+    earliest trip.  So a NaN confined to one rank's replica trips every
+    rank's probe.  ``health_reduce=False`` keeps the per-replica probe
+    (every rank reads its whole replica, nothing reduced): the reference's
+    positive control, not for production.
+    """
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
     if schedule is not None and n_iter is None:
@@ -681,6 +834,8 @@ def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
     n, d = cfg.n_points, cfg.dim_ld
     n_snap = (T // snapshot_every + 1) if snapshot_every else 0
     decay = _METRICS_DECAY
+    health_axes = ctx.all_rows if health_reduce else None
+    h_start, h_loc = _phase_rows(n, health_axes, ctx)
 
     def chunk(st: FuncSNEState, X, hp: HParams):
         dev = st.Y.device
@@ -692,18 +847,24 @@ def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
         bad = torch.full((), -1, dtype=torch.int32, device=dev)
         for _ in range(T):
             hp_t = schedule(st.step, n_iter, hp) if schedule else hp
-            st = funcsne_step(cfg, st, X, hp_t)
+            st = funcsne_step(cfg, st, X, hp_t, ctx=ctx)
             act_col = st.active[:, None].float()
             n_act = st.active.float().sum()
             act_disp = (st.vel.abs() * act_col).sum() \
                 / (n_act.clamp_min(1.0) * d)
             disp = decay * disp + (1.0 - decay) * act_disp
             if health_metrics:
-                finite = torch.isfinite(st.Y)
-                ff = (finite.float() * act_col).sum() \
-                    / (n_act * d).clamp_min(1.0)
-                ff = torch.where(n_act > 0, ff, 1.0)
-                step_max = torch.where(finite & (act_col > 0), st.Y.abs(),
+                y_h = _rows(st.Y, h_start, h_loc)
+                a_h = _rows(st.active, h_start, h_loc)
+                a_col = a_h[:, None].float()
+                na_h = a_h.float().sum()
+                finite = torch.isfinite(y_h)
+                ff = (finite.float() * a_col).sum() \
+                    / (na_h * d).clamp_min(1.0)
+                # a slice with no active rows is healthy: it must not
+                # min a 0/... into the reduced probe
+                ff = torch.where(na_h > 0, ff, 1.0)
+                step_max = torch.where(finite & (a_col > 0), y_h.abs(),
                                        0.0).max()
                 bad = torch.where((bad < 0) & (ff < 1.0), st.step - 1, bad)
                 ff_min = torch.minimum(ff_min, ff)
@@ -716,12 +877,66 @@ def make_chunked_step(cfg: FuncSNEConfig, T: int, *, schedule=None,
                 snaps.index_copy_(0, slot, torch.where(
                     due, st.Y, snaps.index_select(0, slot)[0])[None])
                 k = k + due.int()
+        if health_metrics and health_axes is not None:
+            # once a chunk: min/max commute with the per-step folds above
+            grid = ctx.grid
+            ff_min = grid.all_reduce(ff_min, health_axes, "min",
+                                     tag="health")
+            ymax = grid.all_reduce(ymax, health_axes, "max", tag="health")
+            # the earliest trip; none (-1) goes in as the largest int32
+            no_bad = torch.iinfo(torch.int32).max
+            bad = grid.all_reduce(torch.where(bad < 0, no_bad, bad),
+                                  health_axes, "min", tag="health")
+            bad = torch.where(bad == no_bad, -1, bad)
         return st, snaps, ChunkMetrics(
             step=st.step, n_snapshots=k, disp_ema=disp, zhat=st.zhat,
             ema_new_frac=st.ema_new_frac, finite_frac=ff_min, y_max_abs=ymax,
             bad_step=bad)
 
     return chunk
+
+
+def make_distributed_step(cfg: FuncSNEConfig, mesh, *, points_axes=("data",),
+                          feat_axis="model", chunk: int = None,
+                          schedule=None, n_iter=None,
+                          snapshot_every: int = 0,
+                          health_metrics: bool = True,
+                          health_reduce: bool = True):
+    """The step on a grid of ranks (``mesh``: a
+    :class:`~repro_torch.launch.mesh.Grid`); returns ``(fn, ctx)``.
+
+    Called on every rank of the grid, with the same arguments; ``fn`` is
+    then called on every rank with the rank's replica of the state, its
+    column block of X (``mesh.column_block(X, feat_axis)``) and the
+    hyperparameters.  ``chunk=None`` gives ``fn(st, X, hp) -> st``, one
+    step; ``chunk=T`` the chunk runner, ``fn(st, X, hp) -> (st, snaps,
+    ChunkMetrics)``, whose steps are the same distributed steps, so a
+    chunk equals T of them one by one.  Its health telemetry is reduced
+    over the grid (``health_reduce``, see :func:`_chunk_fn`).
+    """
+    ctx = AxisCtx(points=tuple(points_axes), feat=feat_axis, grid=mesh)
+    width = mesh.axis_size(feat_axis)
+
+    def checked(X):
+        if X.shape[1] * width != cfg.dim_hd:
+            raise ValueError(
+                f"X has {X.shape[1]} columns: a rank takes its block of "
+                f"{cfg.dim_hd} // {width} (mesh.column_block)")
+        return X
+
+    if chunk is None:
+        def step(st, X, hp):
+            return funcsne_step(cfg, st, checked(X), hp, ctx=ctx)
+        return step, ctx
+
+    body = _chunk_fn(cfg, chunk, schedule=schedule, n_iter=n_iter,
+                     snapshot_every=snapshot_every, ctx=ctx,
+                     health_metrics=health_metrics,
+                     health_reduce=health_reduce)
+
+    def run(st, X, hp):
+        return body(st, checked(X), hp)
+    return run, ctx
 
 
 def default_schedule(it, n_iter: int, hp: HParams) -> HParams:

@@ -1,4 +1,4 @@
-"""End-to-end FUnc-SNE embedding launcher of the port (single device).
+"""End-to-end FUnc-SNE embedding launcher of the port.
 
   PYTHONPATH=src python -m repro_torch.launch.embed --dataset mnist-like \
       --n 70000 --iters 500 --chunk 50
@@ -13,9 +13,22 @@ the embedding to ``.npy``.  ``mnist-like`` is the 64-wide stand-in of
 ``--checkpoint-dir`` and ``--audit-every`` hand the loop to ``funcsne.fit``
 under a ``ResiliencePolicy`` (checkpoints in the JAX package's format,
 rollback, the chunk-boundary audit); ``--resume`` continues from the
-newest boundary of ``--checkpoint-dir`` that verifies.  The multi-device
-and multi-process options of ``repro.launch.embed`` are not ported yet and
-raise.
+newest boundary of ``--checkpoint-dir`` that verifies.
+
+``--devices N`` (N > 1) starts N ranks on this machine
+(``launch.mesh.run_ranks``: NCCL where every rank has a card of its own,
+gloo on the CPU or where ranks share a card) and each runs
+``runtime.coordinator.fit_elastic`` on a grid with the requested model
+width ``--model`` (the largest feasible width, as the reference's remesh),
+with ``--checkpoint-dir`` / ``--resume`` / ``--audit-every`` as its
+policy; rank 0 prints the reference's ``[embed]`` line and the backend:
+
+  PYTHONPATH=src python -m repro_torch.launch.embed --devices 2 --model 2 \
+      --device cpu --dataset blobs --n 256 --iters 20
+
+The multi-host options (``--hosts``, ``--num-processes``, ``--process-id``,
+``--coordinator``) belong to the elastic runtime's multi-host part (A6b)
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,6 +63,37 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _embed_rank(rank, world, dev, args):
+    """One rank of ``--devices``: ``fit_elastic`` on the grid; rank 0
+    returns the ``[embed]`` line's numbers and Y, the others None."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.coordinator import fit_elastic
+
+    args = argparse.Namespace(**args)
+    X, _ = load_dataset(args.dataset, args.n)
+    Xt = torch.from_numpy(X).to(dev)
+    n = X.shape[0]
+    cfg = funcsne.FuncSNEConfig(n_points=n, dim_hd=X.shape[1],
+                                dim_ld=args.dim_ld)
+    hp = funcsne.default_hparams(n, alpha=args.alpha,
+                                 perplexity=args.perplexity, device=dev)
+    policy = ResiliencePolicy(checkpoint_dir=args.checkpoint_dir,
+                              audit_every=args.audit_every) \
+        if args.checkpoint_dir or args.audit_every else None
+    t0 = time.perf_counter()
+    st = fit_elastic(Xt, cfg=cfg, n_iter=args.iters, chunk_size=args.chunk,
+                     hparams=hp, model=args.model, resilience=policy,
+                     resume_from=args.checkpoint_dir if args.resume else None,
+                     device=dev)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    if rank != 0:
+        return None
+    return {"n": n, "dt": dt, "auc": float(embedding_quality(Xt, st.Y)),
+            "Y": st.Y.cpu().numpy(), "backend": dist.get_backend()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="cells",
@@ -75,25 +119,56 @@ def main(argv=None):
                     help="run the chunk-boundary state auditor every N "
                          "healthy chunks (0 = off); a violation rolls "
                          "back like any health-probe trip")
-    for flag in ("--devices", "--num-processes"):
-        ap.add_argument(flag, type=int, default=None,
-                        help="not ported yet: raises NotImplementedError")
+    ap.add_argument("--devices", type=int, default=1,
+                    help=">1 starts that many ranks on this machine, each "
+                         "running runtime.coordinator.fit_elastic on a "
+                         "(data, model) grid (NCCL where each rank has a "
+                         "card of its own, else gloo)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="requested model-axis width (the largest feasible "
+                         "width <= this is used)")
+    for flag, kind in (("--hosts", int), ("--num-processes", int),
+                       ("--process-id", int), ("--coordinator", str)):
+        ap.add_argument(flag, type=kind, default=None,
+                        help="multi-host elastic runtime (A6b): raises "
+                             "NotImplementedError")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
-    unported = [f for f in ("devices", "num_processes")
-                if getattr(args, f) not in (None, 0, 1)]
+    unported = [f for f, off in (("hosts", (None, 1)),
+                                 ("num_processes", (None, 1)),
+                                 ("process_id", (None,)),
+                                 ("coordinator", (None,)))
+                if getattr(args, f) not in off]
     if unported:
         raise NotImplementedError(
-            f"options not ported yet: {['--' + f.replace('_', '-') for f in unported]}")
+            "the multi-host elastic runtime (A6b) is not ported yet: "
+            f"{['--' + f.replace('_', '-') for f in unported]}")
 
     dev = funcsne.resolve_device(args.device)
-    X, _ = load_dataset(args.dataset, args.n)
-    Xt = torch.from_numpy(X).to(dev)
-    n = X.shape[0]
     T = max(1, min(args.chunk, args.iters))
     n_chunks = max(1, args.iters // T)
     iters = n_chunks * T                 # schedule horizon == steps run
+    if args.devices > 1:
+        from repro_torch.launch.mesh import run_ranks
+        # the elastic loop owns the run on every rank (reduced health
+        # probes, rank 0's checkpoints, rollback)
+        run = dict(vars(args), iters=iters, chunk=T)
+        res = run_ranks(_embed_rank, args.devices, (run,), device=dev,
+                        timeout=None)[0]
+        print(f"[embed] {args.dataset} n={res['n']} iters={iters} chunk={T} "
+              f"devices={args.devices} model={args.model} hosts=1 "
+              f"processes={args.devices} backend={res['backend']} "
+              f"device={dev.type}: {res['dt']:.1f}s (build included), "
+              f"R_NX AUC={res['auc']:.3f}")
+        if args.out:
+            np.save(args.out, res["Y"])
+            print(f"[embed] wrote {args.out}")
+        return
+
+    X, _ = load_dataset(args.dataset, args.n)
+    Xt = torch.from_numpy(X).to(dev)
+    n = X.shape[0]
     cfg = funcsne.FuncSNEConfig(n_points=n, dim_hd=X.shape[1],
                                 dim_ld=args.dim_ld)
     hp = funcsne.default_hparams(n, alpha=args.alpha,

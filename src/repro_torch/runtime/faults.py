@@ -7,7 +7,9 @@ scripted faults rather than by waiting for a card to misbehave:
   :class:`NaNChunk`          poisons the state handed to one chunk (the
                              rollback anchor stays clean), so the chunk's
                              health telemetry sees an optimisation that
-                             blew up mid-flight;
+                             blew up mid-flight; with ``shard=s`` only
+                             rank ``s``'s replica, as a fault local to
+                             one card would;
   :class:`IndexCorruption`   poisons an index table (``hd_idx`` /
                              ``ld_idx`` / ``rev_idx``) with out-of-range but
                              finite values, which only the chunk-boundary
@@ -67,22 +69,60 @@ def _poison_rows(st, field: str, rows: int, value):
     return st._replace(**{field: arr})
 
 
+def _poison_one_replica(st, field: str, shard: int, rows: int, value):
+    """``st`` with poison in rank ``shard``'s replica only: rows ``[shard *
+    n_loc, shard * n_loc + rows)`` of ``field`` (its own row slice, ``n_loc
+    = n // world``) on rank ``shard``, every other rank's replica untouched.
+    This models a fault local to one card (a bad memory row, a kernel gone
+    wrong on one device): the replicas no longer agree, yet every
+    collective still runs.  Needs a process group of two or more ranks
+    (``repro_torch.launch.mesh.run_ranks``); shard ``s`` is rank ``s``, in
+    the grid's rank order."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() < 2:
+        raise ValueError("poisoning one replica needs a process group of "
+                         ">= 2 ranks (run_ranks)")
+    world = dist.get_world_size()
+    if not 0 <= shard < world:
+        raise ValueError(f"shard {shard} out of range for {world} ranks")
+    if dist.get_rank() != shard:
+        return st
+    arr = getattr(st, field).clone()
+    n_loc = max(1, arr.shape[0] // world)
+    lo = shard * n_loc
+    arr[lo:lo + min(rows, n_loc)] = value
+    return st._replace(**{field: arr})
+
+
 @dataclasses.dataclass
 class NaNChunk:
     """Poison the state entering the first chunk whose start step is
     ``>= at_step``: the first ``rows`` rows of ``field`` become NaN, as if
     the optimiser diverged mid-chunk.  The caller's rollback anchor (taken
-    before injection) stays clean, so rollback and retry recover."""
+    before injection) stays clean, so rollback and retry recover.
+
+    ``shard=s`` poisons only rank ``s``'s replica, rows of its own slice
+    (:func:`_poison_one_replica`).  With ``field="vel"`` the NaN reaches
+    that rank's Y through the momentum update alone, which no collective
+    touches within the step, so only a probe reduced over the grid sees it
+    (poisoning Y instead spreads to every replica through the force sum
+    within one step)."""
     at_step: int
     rows: int = 8
     once: bool = True
     fired: bool = False
+    shard: Optional[int] = None
     field: str = "Y"
 
     def apply(self, st, it: int):
         if (self.fired and self.once) or it < self.at_step:
             return st
         self.fired = True
+        if self.shard is not None:
+            return _poison_one_replica(st, self.field, self.shard, self.rows,
+                                       float("nan"))
         return _poison_rows(st, self.field, self.rows, float("nan"))
 
 
@@ -92,19 +132,25 @@ class IndexCorruption:
     start step is ``>= at_step``: the first ``rows`` rows of ``field``
     (``hd_idx`` / ``ld_idx`` / ``rev_idx``) become ``n + 12345``, out of
     range but finite and below SENTINEL.  The finite-fraction and max-|Y|
-    probes cannot see it; ``funcsne.audit_state`` can."""
+    probes cannot see it; ``funcsne.audit_state`` can.  ``shard=s``
+    confines the poison to rank ``s``'s replica (the audit's counts are
+    reduced over the grid, so it still trips)."""
     at_step: int
     field: str = "hd_idx"
     rows: int = 8
     once: bool = True
     fired: bool = False
+    shard: Optional[int] = None
 
     def apply(self, st, it: int):
         if (self.fired and self.once) or it < self.at_step:
             return st
         self.fired = True
-        return _poison_rows(st, self.field, self.rows,
-                            st.active.shape[0] + 12345)
+        bad = st.active.shape[0] + 12345
+        if self.shard is not None:
+            return _poison_one_replica(st, self.field, self.shard, self.rows,
+                                       bad)
+        return _poison_rows(st, self.field, self.rows, bad)
 
 
 @dataclasses.dataclass

@@ -45,13 +45,12 @@ def _state(n=40):
                                   "CorruptShard", "KernelLaunchFault",
                                   "Preemption"])
 def test_fault_fields_equal_jax(name):
-    """The same fields and defaults as the JAX injector (its ``shard``
-    option aside: per-replica poisoning needs a mesh)."""
+    """The same fields and defaults as the JAX injector, ``shard`` (one
+    rank's replica) included."""
     ours = [(f.name, f.default) for f in
             dataclasses.fields(getattr(faults, name))]
     theirs = [(f.name, f.default) for f in
-              dataclasses.fields(getattr(j_faults, name))
-              if not (f.name == "shard" and name != "CorruptShard")]
+              dataclasses.fields(getattr(j_faults, name))]
     assert ours == theirs
 
 

@@ -190,10 +190,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """What is still unported raises: the CLI's multi-device options (fit's
-    resilience options and the session controls callback / early_stop /
-    auto_rescale are ported and run); every flag setting of the config,
-    ``cand_fused=False`` included, constructs."""
+    """What is still unported raises: the CLI's multi-host options (its
+    ``--devices`` / ``--model``, fit's resilience options and the session
+    controls callback / early_stop / auto_rescale are ported and run);
+    every flag setting of the config, ``cand_fused=False`` included,
+    constructs."""
     for kw in (dict(gather_fused=False), dict(scatter_fused=False),
                dict(merge_fused=False), dict(c_hd_rev=2, rev_refresh=1),
                dict(cand_fused=False), dict(c_hd_rev=2, cand_fused=False)):
@@ -208,8 +209,8 @@ def test_unported_options_raise(tmp_path):
                dict(resume_from=ckdir)):
         st, _ = tf.fit(X, cfg=cfg, n_iter=2, device="cpu", **kw)
         assert int(st.step) >= 1
-    for argv in (["--devices", "2"], ["--num-processes", "2"]):
-        with pytest.raises(NotImplementedError):
+    for argv in (["--hosts", "2"], ["--num-processes", "2"]):
+        with pytest.raises(NotImplementedError, match="A6b"):
             t_embed.main(argv + ["--device", "cpu"])
 
 
