@@ -177,6 +177,30 @@ them:
       (2, 1) run: the reduced probe trips on both ranks, one rollback, Y
       finite.  Two ranks time-share one card, so no step rate here is a
       multi-GPU speed.
+  (n) the elastic runtime across hosts: (n1) mnist-70k on two gloo ranks
+      on cuda:0 as two simulated hosts (``fit_elastic(n_hosts=2)``, a
+      checkpoint every chunk), host 1 lost at step N_LOSS_AT: the events
+      ``host_lost`` -> ``remesh`` to a (1, 1) grid, step ITERS reached with Y
+      finite, recall@32 above RECALL_MIN beside (d)'s and (m)'s (2, 1),
+      the port's fsck passing every committed boundary (two shard files a
+      boundary before the loss), and the run ending bit for bit where a
+      one-rank ``fit_elastic`` resumed from a copy of the restored boundary
+      ends; the quiesce, remesh, restore and verify host ms, the bytes a
+      shard, the steps redone and steps/s before and after the loss.  (n2)
+      ``runtime.control.Supervisor`` with two worker processes on cuda:0
+      (gloo) on the reference supervisor's blobs at 70,000 x 784, pod 1
+      SIGKILLing itself at step N_KILL_AT, and the same without a kill:
+      every assertion of ``scenario_process_kill``, the relaunched worker's
+      launches of B1, B2 LD and B3, the spread ratio of the two runs inside
+      SPREAD_RANGE, recall@32 and AUC of both (restored from their last
+      boundaries), and what the kill cost on the trail's clock (to
+      ``heartbeat_lost``, ``generation_killed``, the new ``worker_start``,
+      its ``restore``, its first boundary past it), the steps redone and
+      the two runs' wall times.  Each run's launches are counted from
+      zero in its own processes, gated (every kernel of a grid's run
+      launched) and printed on the [n1] / [n2] lines; they add to no row
+      of the ``kernels`` line, whose rows each keep the count of their own
+      path's run.
 
 B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
 2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
@@ -342,6 +366,14 @@ L_NAN_CHUNK, L_PREEMPT_CHUNK, L_FAULT_LAUNCH = 3, 6, 300
 M_ITERS = {(2, 1): 500, (1, 2): 500, (1, 1): 500}
 M_FAULT_AT, M_FAULT_ITERS = 100, 200
 M_TIMEOUT = 900
+# phase (n): (n1) the step a simulated host is lost at, (n2) the boundary a
+# worker SIGKILLs itself at, in ITERS steps in chunks of CHUNK; the spawn's
+# and each supervised run's time limits in seconds; the bound of the spread
+# ratio of the killed and the unkilled supervised runs (the reference's
+# host-loss scenario's)
+N_LOSS_AT, N_KILL_AT = 250, 250
+N_TIMEOUT = 300
+SPREAD_RANGE = (0.5, 2.0)
 # exact_tsne_grad against torch.autograd's gradient of kl_loss, of max|g|:
 # the same float32 quantities summed in another order over 5,000 columns
 TOL_GRAD_REL = 1e-5
@@ -628,6 +660,285 @@ def mesh_rank(rank, world, dev, jobs, n, dim, rows, sub, chunk):
         out.append(res)
         del st
     return out
+
+
+def host_loss_rank(rank, world, dev, n, dim, rows, sub, chunk, root):
+    """What each rank of phase (n1) runs: ``fit_elastic(n_hosts=2)`` at
+    MNIST's shape under a checkpoint every chunk with host 1 lost at step
+    N_LOSS_AT (rank 0 copies the checkpoint directory when the remesh is
+    logged), then a one-rank ``fit_elastic`` resumed from that copy.
+    Returns the events, the launches, a hash of every state field of both
+    runs, the host ms of the quiesce, the remesh, the restore and its
+    verify, the clock at each boundary, and on rank 0 the HD lists of
+    ``rows`` and the Y of ``sub``."""
+    import hashlib
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import funcsne
+    from repro_torch.core.resilience import ResiliencePolicy
+    from repro_torch.data import synthetic
+    from repro_torch.runtime import elastic, faults
+    from repro_torch.runtime.coordinator import fit_elastic
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    X = torch.from_numpy(synthetic.mnist_like(n=n, dim=dim, seed=0)[0]).to(dev)
+    cfg = funcsne.FuncSNEConfig(n_points=n, dim_hd=dim)
+    hp = funcsne.default_hparams(n, device=dev)
+    timing = {"remesh": [], "restore": [], "verify": []}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                timing[name].append((time.perf_counter() - t0) * 1e3)
+        return run
+    # the handler's pieces, timed where they are called
+    elastic.remesh = timed("remesh", elastic.remesh)
+    Checkpointer.restore_verified = timed("restore",
+                                          Checkpointer.restore_verified)
+    Checkpointer.verify_step = timed("verify", Checkpointer.verify_step)
+    stamps, marks = [], {}
+    run_dir, copy_dir = os.path.join(root, "run"), os.path.join(root, "copy")
+
+    def on_event(e):
+        marks[e["kind"]] = time.perf_counter()
+        if e["kind"] == "remesh" and rank == 0:
+            shutil.copytree(run_dir, copy_dir)
+
+    def beat(it):
+        sync()
+        stamps.append((it, time.perf_counter()))
+    policy = ResiliencePolicy(checkpoint_dir=run_dir, checkpoint_every=1,
+                              keep_last=ITERS // chunk, on_event=on_event)
+    kernels.reset_launches()
+    with faults.active(faults.FaultScript(faults.HostLoss(at_step=N_LOSS_AT,
+                                                          host=1))):
+        st = fit_elastic(X, cfg=cfg, n_iter=ITERS, chunk_size=chunk,
+                         hparams=hp, n_hosts=2, model=1, resilience=policy,
+                         on_boundary=beat, device=dev)
+    sync()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    def hashes(s):
+        return {f: hashlib.sha256(getattr(s, f).cpu().numpy().tobytes())
+                .hexdigest() for f in funcsne.FuncSNEState._fields}
+    res = {"events": policy.events, "launches": launches, "stamps": stamps,
+           "marks": marks, "timing": {k: list(v) for k, v in timing.items()}}
+    if st is not None:
+        res.update(hashes=hashes(st), step=int(st.step),
+                   finite=bool(torch.isfinite(st.Y).all()),
+                   hd_rows=st.hd_idx[torch.from_numpy(rows).to(dev)].cpu(),
+                   y_sub=st.Y[torch.from_numpy(sub).to(dev)].cpu())
+    del st
+    # the fresh run: one rank resumed from the copy of the restored boundary
+    fresh_stamps = []
+    fresh = fit_elastic(X, cfg=cfg, n_iter=ITERS, chunk_size=chunk,
+                        hparams=hp, devices=1, resilience=ResiliencePolicy(
+                            checkpoint_dir=copy_dir, checkpoint_every=1),
+                        resume_from=copy_dir, device=dev,
+                        on_boundary=lambda it: (sync(), fresh_stamps.append(
+                            (it, time.perf_counter()))))
+    if fresh is not None:
+        res.update(fresh_hashes=hashes(fresh), fresh_stamps=fresh_stamps)
+    return res
+
+
+def elastic_phase(X, rows, sub, true_idx, rec_d, auc_d, q_m, expected, card):
+    """Phase (n) (see the module docstring): ``X`` is mnist-70k on the card,
+    ``rows`` / ``true_idx`` the recall subsample and its exact neighbours,
+    ``sub`` the AUC subsample, ``rec_d`` / ``auc_d`` phase (d)'s quality
+    and ``q_m`` phase (m)'s (2, 1); ``expected`` the launch counters of a
+    grid's run."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.verify import verify_dir
+    from repro_torch.core import funcsne, knn
+    from repro_torch.core.quality import embedding_quality
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import control, faults
+
+    dev = X.device
+    t_n = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def recall_of(hd_rows, truth):
+        return float((hd_rows.to(dev)[:, :, None].long()
+                      == truth.long()[:, None, :]).any(-1).float().mean())
+    root = tempfile.mkdtemp(prefix="chip-smoke-elastic-")
+    try:
+        # (n1) simulated host loss on mnist-70k
+        t0 = time.perf_counter()
+        r0, r1 = mesh_lib.run_ranks(
+            host_loss_rank, 2, (N, DIM, rows.cpu().numpy(),
+                                sub.cpu().numpy(), CHUNK, root),
+            device=dev, backend=mesh_lib.pick_backend(dev, 2),
+            timeout=N_TIMEOUT)
+        t_n1 = time.perf_counter() - t0
+        check([e["kind"] for e in r0["events"]] == ["host_lost", "remesh"],
+              f"(n1) rank 0 events {r0['events']}")
+        hl, rm = r0["events"]
+        check(hl == {"kind": "host_lost", "step": N_LOSS_AT, "host": 1}
+              and rm["step"] == N_LOSS_AT and rm["n_devices"] == 1
+              and rm["n_hosts"] == 1
+              and rm["mesh"] == {"data": 1, "model": 1},
+              f"(n1) events {r0['events']}")
+        check([e["kind"] for e in r1["events"]] == ["host_lost",
+                                                    "rank_idle"]
+              and "hashes" not in r1 and "fresh_hashes" not in r1,
+              f"(n1) rank 1 events {r1['events']}")
+        check(r0["step"] == ITERS and r0["finite"],
+              f"(n1) step {r0['step']}, Y finite {r0['finite']}")
+        for rank, r_ in enumerate((r0, r1)):
+            check(set(r_["launches"]) == expected,
+                  f"(n1) rank {rank} launched {r_['launches']}")
+        check(r0["hashes"] == r0["fresh_hashes"],
+              "(n1) the host-lost run differs from the fresh one-rank "
+              "resume of the restored boundary")
+        rec_n = recall_of(r0["hd_rows"], true_idx)
+        auc_n = float(embedding_quality(X[sub], r0["y_sub"].to(dev)))
+        check(rec_n > RECALL_MIN, f"(n1) recall {rec_n}")
+        run_dir = os.path.join(root, "run")
+        t0 = time.perf_counter()
+        fsck = io.StringIO()
+        bad = verify_dir(run_dir, out=fsck)
+        t_fsck = (time.perf_counter() - t0) * 1e3
+        check(bad == 0, f"(n1) fsck: {fsck.getvalue()}")
+        steps = Checkpointer(run_dir).all_steps()
+        check(steps == list(range(CHUNK, ITERS + 1, CHUNK)),
+              f"(n1) committed {steps}")
+        for s_ in steps:
+            d_ = os.path.join(run_dir, f"step_{s_:010d}")
+            names = sorted(f for f in os.listdir(d_) if f.endswith(".npz"))
+            check(names == (["shard000-of-002.npz", "shard001-of-002.npz"]
+                            if s_ <= N_LOSS_AT else ["arrays.npz"]),
+                  f"(n1) step {s_} holds {names}")
+        d_loss = os.path.join(run_dir, f"step_{N_LOSS_AT:010d}")
+        shard_mb = [os.path.getsize(os.path.join(d_loss, f)) / 1e6
+                    for f in ("shard000-of-002.npz", "shard001-of-002.npz")]
+        whole_mb = os.path.getsize(os.path.join(
+            run_dir, f"step_{ITERS:010d}", "arrays.npz")) / 1e6
+        st_ = dict(r0["stamps"])
+        quiesce = (r0["marks"]["host_lost"] - st_[N_LOSS_AT]) * 1e3
+        tm = r0["timing"]
+        before = (N_LOSS_AT - CHUNK) / (st_[N_LOSS_AT] - st_[CHUNK])
+        after = (ITERS - N_LOSS_AT - CHUNK) / (st_[ITERS]
+                                               - st_[N_LOSS_AT + CHUNK])
+        first_ms = (st_[N_LOSS_AT + CHUNK] - r0["marks"]["remesh"]) * 1e3
+        fs = dict(r0["fresh_stamps"])
+        fresh = (ITERS - N_LOSS_AT - CHUNK) / (fs[ITERS]
+                                               - fs[N_LOSS_AT + CHUNK])
+        log(f"[n1] mnist-70k on 2 gloo ranks on cuda:0 as 2 simulated hosts, "
+            f"host 1 lost at step {N_LOSS_AT}: events host_lost -> remesh to "
+            f"{rm['mesh']} ({rm['n_devices']} rank, {rm['n_hosts']} host), "
+            f"step {r0['step']} reached, Y finite; recall@32 {rec_n:.4f} "
+            f"(phase (d) {rec_d:.4f}, (m) (2,1) {q_m[0]:.4f}), AUC "
+            f"{auc_n:.4f} (phase (d) {auc_d:.4f}, (m) (2,1) {q_m[1]:.4f}); "
+            f"bit for bit the one-rank fit_elastic resumed from a copy of "
+            f"step {rm['step']}; {t_n1:.1f}s with the spawn")
+        log(f"    host ms: quiesce (writes landed, barrier) {quiesce:.1f}, "
+            f"remesh {tm['remesh'][-1]:.2f}, restore {tm['restore'][-1]:.1f} "
+            f"(its verify {tm['verify'][-1]:.1f}), the fsck of "
+            f"{len(steps)} boundaries {t_fsck:.1f} ({t_fsck / len(steps):.1f}"
+            f" a boundary); shards at step {N_LOSS_AT} "
+            + " + ".join(f"{m_:.2f}" for m_ in shard_mb)
+            + f" MB, one host's arrays.npz {whole_mb:.2f} MB; steps redone "
+            f"{hl['step'] - rm['step']}; steps/s at (2,1) {before:.1f} a "
+            f"rank, at (1,1) after the loss {after:.1f} (its first chunk "
+            f"{first_ms:.0f} ms from the remesh), the fresh one-rank run "
+            f"{fresh:.1f}; launches rank 0 {r0['launches']}, rank 1 "
+            f"{r1['launches']}")
+        log(f"    fsck: {' | '.join(fsck.getvalue().strip().splitlines())}")
+
+        # (n2) a real SIGKILL under the supervisor, and the same unkilled
+        Xb = torch.from_numpy(synthetic.blobs(
+            n=N, dim=DIM, n_centers=2, center_std=5.0, seed=0)[0]).to(dev)
+        cfg_b = funcsne.FuncSNEConfig(n_points=N, dim_hd=DIM, n_negatives=4)
+        true_b, _ = knn.exact_knn(Xb, cfg_b.k_hd, rows=rows)
+        like = funcsne.init_state(Xb, cfg_b, seed=0, device=dev)
+        rec_b0 = recall_of(like.hd_idx[rows], true_b)
+        runs = {}
+        for label, kill in (("killed", True), ("unkilled", False)):
+            sup = control.Supervisor(
+                os.path.join(root, label), n_pods=2, n=N, dim=DIM,
+                n_iter=ITERS, chunk_size=CHUNK, device=dev.type,
+                kill_pod=1 if kill else None,
+                kill_at_chunk=N_KILL_AT if kill else None,
+                total_timeout=N_TIMEOUT)
+            t0 = time.monotonic()
+            report = sup.run()
+            wall = time.monotonic() - t0
+            tree, meta = Checkpointer(sup.ckpt_dir).restore(like)
+            check(meta["step"] == ITERS, f"(n2) {label}: final {meta}")
+            runs[label] = {"sup": sup, "report": report, "wall": wall,
+                           "recall": recall_of(tree.hd_idx[rows], true_b),
+                           "auc": float(embedding_quality(Xb[sub],
+                                                          tree.Y[sub]))}
+            del tree
+        k_, u_ = runs["killed"], runs["unkilled"]
+        restore = faults.check_process_kill(k_["sup"], k_["report"], ITERS)
+        check(u_["report"]["generations"] == 1
+              and u_["report"]["result"]["step"] == ITERS
+              and u_["report"]["result"]["finite"],
+              f"(n2) unkilled: {u_['report']['result']}")
+        trail = k_["report"]["trail"]
+
+        def first(kind, **kw):
+            return next(e for e in trail if e["kind"] == kind
+                        and all(e.get(a) == b for a, b in kw.items()))
+        kill_ev = first("process_kill")
+        done = first("worker_done", generation=1)
+        la = done["launches"]
+        check(set(la) == expected
+              and la["ne_forces_scatter"] == ITERS - restore["step"],
+              f"(n2) the relaunched worker launched {la}")
+        for e in u_["report"]["trail"]:
+            if e["kind"] == "worker_done":
+                check(set(e["launches"]) == expected,
+                      f"(n2) unkilled pod {e['pod']} launched "
+                      f"{e['launches']}")
+        ratio = k_["report"]["result"]["y_std"] / \
+            u_["report"]["result"]["y_std"]
+        check(SPREAD_RANGE[0] <= ratio <= SPREAD_RANGE[1],
+              f"(n2) spread ratio {ratio}")
+        t_k = kill_ev["t"]
+        cost = {name: (first(kind, **kw)["t"] - t_k) * 1e3
+                for name, kind, kw in (
+                    ("heartbeat_lost", "heartbeat_lost", {}),
+                    ("generation_killed", "generation_killed", {}),
+                    ("worker_start", "worker_start", {"generation": 1}),
+                    ("restore", "restore", {"generation": 1}),
+                    ("first boundary", "pod_started", {"generation": 1}))}
+        log(f"[n2] blobs {N:,} x {DIM} under the supervisor, 2 workers on "
+            f"cuda:0 (gloo), pod 1 SIGKILLed at step {kill_ev['step']}: "
+            f"every check of scenario_process_kill passed (2 generations, "
+            f"survivors [0], no orphan, no stale shard, final generation 1); "
+            f"resumed at step {restore['step']} (steps redone "
+            f"{kill_ev['step'] - restore['step']}); the relaunched worker "
+            f"launched {la}; spread ratio {ratio:.4f} (killed / unkilled "
+            f"y_std, within {SPREAD_RANGE})")
+        log("    the kill's cost from the SIGKILL, ms on the trail's clock: "
+            + ", ".join(f"{k} {v:.0f}" for k, v in cost.items())
+            + f"; wall killed {k_['wall']:.1f}s against unkilled "
+            f"{u_['wall']:.1f}s ({k_['wall'] / u_['wall']:.2f}x)")
+        log(f"    recall@32 killed {k_['recall']:.4f} / unkilled "
+            f"{u_['recall']:.4f} (initial lists {rec_b0:.5f}); AUC killed "
+            f"{k_['auc']:.4f} / unkilled {u_['auc']:.4f}; ({card})")
+        del like, Xb
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[n] phase (n) took {time.perf_counter() - t_n:.1f}s")
 
 
 def resilience_phase(X, labels, cfg, hp, st_d, sps_d, recall, main_kernels,
@@ -3172,7 +3483,7 @@ def main():
                 "ne_forces_scatter"}
     runs = {"(2,1) run 1": (2, 1), "(2,1) run 2": (2, 2),
             "(1,2)": (2, 3), "(1,1)": (1, 1)}
-    counts = {}
+    counts, m_quality = {}, {}
     for label, (world, j) in runs.items():
         per_rank = [out_r[j] for out_r in results[world]]
         iters = (jobs_g if world == 2 else jobs_n)[j]["iters"]
@@ -3193,6 +3504,7 @@ def main():
         rec_m = float((r0["hd_rows"].to(dev)[:, :, None].long()
                        == true_idx.long()[:, None, :]).any(-1).float().mean())
         auc_m = float(embedding_quality(X[sub], r0["y_sub"].to(dev)))
+        m_quality[label] = (rec_m, auc_m)
         if iters == ITERS:
             check(rec_m > RECALL_MIN, f"{label}: recall {rec_m}")
         coll = "; ".join(
@@ -3226,6 +3538,10 @@ def main():
     for row, run, key in m_rows:
         row["launches"] = counts[run][key]
     log(f"[m] phase (m) took {time.perf_counter() - t_m:.1f}s")
+
+    # ---- (n) the elastic runtime across hosts -------------------------------
+    elastic_phase(X, rows, sub, true_idx, rec1, auc,
+                  m_quality["(2,1) run 1"], expected, card)
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 

@@ -3,4 +3,5 @@ from repro_torch.checkpoint.checkpointer import (CheckpointCorrupt,  # noqa: F40
                                                  CheckpointError,
                                                  CheckpointIncompatible,
                                                  CheckpointNotFound,
-                                                 Checkpointer, cfg_compat)
+                                                 Checkpointer, cfg_compat,
+                                                 row_shard_filter)

@@ -1,28 +1,49 @@
 """Atomic, asynchronous, verified checkpoints in the JAX package's on-disk
-format (port of the single-process layout of ``repro.checkpoint``).
+format, one host or many (port of ``repro.checkpoint``).
 
-A committed step is a directory ``step_%010d`` holding ``arrays.npz`` and
-``meta.json``, exactly as the JAX package writes them:
+A committed step is a directory ``step_%010d`` holding ``meta.json`` and
+either ``arrays.npz`` (one writer) or one ``shard<h>-of-<H>[-g<G>].npz`` a
+host, exactly as the JAX package writes them:
 
   - save(): the tree is copied to the host synchronously, then written
     off the step path (a thread by default): one uncompressed ``.npz``
     with path-flattened keys (``.Y``, ``.hd_idx``, ... for a
     ``FuncSNEState``; ``['key']`` for a dict; ``[i]`` for a sequence;
     nested paths joined by ``||``), committed by renaming a tmp dir;
-  - integrity manifest: ``meta.json`` records the CRC32 of the file's
-    bytes and the array manifest (key, dtype, shape), computed from the
-    bytes about to be written;
+  - many hosts: each writes only its part (``host_shard_filter``, e.g.
+    :func:`row_shard_filter`: host ``h``'s rows of every row-indexed leaf,
+    host 0 the rest) with ``host_id`` / ``n_hosts``.  Parts are staged
+    with a ``.manifest.json`` sidecar under the shared ``.tmp-<step>``;
+    the writer that completes the set claims the commit with an
+    ``O_EXCL`` marker ``.tmp-<step>.claim[-g<G>]`` and renames the
+    directory, so a step is only ever visible whole, and a writer that
+    loses the race never deletes the committed step.  A ``generation``
+    (the pod incarnation a control plane bumps on every relaunch) tags the
+    parts; the completing writer evicts every other file still staged
+    (recorded in ``evicted_stale``), so a dead generation's parts never
+    merge into a relaunch's boundary;
+  - integrity manifest: ``meta.json`` records each file's CRC32 and its
+    array manifest (key, dtype, shape, row range), computed from the bytes
+    about to be written;
   - verify_step(): re-reads the files and checks the CRC32, the exact
-    array set with dtypes and shapes, row coverage and the n_hosts count,
-    raising :class:`CheckpointCorrupt` before anything is loaded;
+    array set with dtypes and shapes, row coverage (each row-sliced leaf
+    covered once, no gap or overlap) and the n_hosts count, raising
+    :class:`CheckpointCorrupt` before anything is loaded;
   - restore(): verify (on by default), check the writer's config
-    fingerprint (:func:`cfg_compat`) when asked, then load each leaf with
-    the dtype, shape and device of the like-tree's leaf;
+    fingerprint (:func:`cfg_compat`) when asked, load only the files the
+    committing generation's manifest names, merge row slices by offset,
+    then give each leaf the dtype, shape and device of the like-tree's
+    leaf;
   - restore_verified(): walk committed steps newest -> oldest until one
     verifies, returning the damaged boundaries skipped; ``keep_last``
     pruning never evicts the step that last verified;
   - an async write failure raises on the next ``wait()`` or ``save()``;
     ``close()`` (and ``__del__``) warn about an error nobody observed.
+
+The reference's ``restore(shardings=)`` lays the merged arrays out on a
+target JAX mesh.  The port has no counterpart: every rank of a grid holds
+a whole replica, so each rank restores the merged tree onto its own device
+(the like-tree's), whatever grid or host count wrote it.
 
 The port's ``FuncSNEState`` keeps its key as int64 words where the JAX
 package keeps uint32: ``funcsne.fit`` saves the state through
@@ -30,11 +51,6 @@ package keeps uint32: ``funcsne.fit`` saves the state through
 and a restore casts each leaf to the like-tree's dtype, so a JAX
 checkpoint restores into the port.  ``python -m repro.checkpoint.verify``
 accepts the port's checkpoints and the JAX ``Checkpointer`` restores them.
-
-The JAX package's multi-host layout (per-host ``shard*-of-*.npz`` files,
-generation tags, ``restore(shardings=)``) is not ported: verify_step()
-checks such a directory, and restore() refuses it with
-:class:`CheckpointIncompatible`.
 
 ``python -m repro_torch.checkpoint.verify <dir>`` runs the same
 verification over every committed step of a checkpoint directory.
@@ -50,7 +66,7 @@ import time
 import warnings
 import zlib
 from pathlib import Path
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -58,6 +74,7 @@ import torch
 _SEP = "||"
 _ROWS = "@rows"     # key suffix of a host-sliced leaf: key||@rows<start>
 _ARRAYS = "arrays.npz"
+_MANIFEST_SUFFIX = ".manifest.json"     # staged sidecar of a part (tmp only)
 
 
 # --------------------------------------------------------------------------
@@ -107,9 +124,9 @@ class CheckpointCorrupt(CheckpointError):
 
 
 class CheckpointIncompatible(CheckpointError):
-    """The checkpoint verifies but cannot continue this run: it was written
-    under another config (n / dims / K / flag matrix), or in the
-    multi-host layout this package does not restore.
+    """The checkpoint verifies but was written under an incompatible config
+    (another n / dims / K / flag matrix): restoring it would poison the
+    resumed run rather than continue it.
 
     Attributes:
       step:       the step checked.
@@ -219,6 +236,20 @@ def _unflatten_into(like, flat: dict, prefix=""):
     return type(like)(vals)
 
 
+def row_shard_filter(host_id: int, n_hosts: int, n_rows: int) -> Callable:
+    """The standard per-host filter: host ``h`` writes rows
+    ``[h*n/H, (h+1)*n/H)`` of every leaf whose leading dim is ``n_rows``;
+    host 0 also writes every other (replicated or scalar) leaf.  Pass it to
+    :meth:`Checkpointer.save` as ``host_shard_filter``."""
+    def filt(key: str, arr: np.ndarray):
+        if arr.ndim >= 1 and arr.shape[0] == n_rows:
+            lo = host_id * n_rows // n_hosts
+            hi = (host_id + 1) * n_rows // n_hosts
+            return lo, arr[lo:hi]
+        return (None, arr) if host_id == 0 else None
+    return filt
+
+
 # --------------------------------------------------------------------------
 # Checkpointer
 
@@ -237,17 +268,41 @@ class Checkpointer:
     # -- save ------------------------------------------------------------
 
     def save(self, step: int, tree: Any, metadata: dict = None,
-             blocking: bool = False):
+             blocking: bool = False, host_shard_filter: Callable = None,
+             host_id: int = 0, n_hosts: int = 1,
+             generation: Optional[int] = None):
         """The tree is copied to the host now; the write runs on a thread
-        unless ``blocking``.  A step already committed is overwritten."""
+        unless ``blocking``.
+
+        ``host_shard_filter(key, array)`` selects what this host writes:
+        ``None`` skips the leaf (another host owns it), ``(None, arr)``
+        writes it whole, ``(start, rows)`` a row slice merged back by offset
+        on restore (:func:`row_shard_filter`).  With ``n_hosts > 1`` or a
+        ``generation`` each host stages ``shard<h>-of-<H>[-g<G>].npz`` under
+        the shared tmp dir and the one completing the set commits (see the
+        module docstring); with one host and no generation the step is
+        ``arrays.npz``, and a step already committed is overwritten."""
         self.wait()
-        flat = _flatten(tree)
         meta = dict(metadata or {})
         meta["step"] = int(step)
         meta["time"] = time.time()
-        meta["n_hosts"] = 1
-        arrays_meta = {key: {"dtype": str(a.dtype), "shape": list(a.shape)}
-                       for key, a in flat.items()}
+        meta["n_hosts"] = int(n_hosts)
+        if generation is not None:
+            meta["generation"] = int(generation)
+        flat, arrays_meta = {}, {}
+        for key, arr in _flatten(tree).items():
+            picked = (None, arr) if host_shard_filter is None \
+                else host_shard_filter(key, arr)
+            if picked is None:
+                continue
+            start, part = picked
+            entry = {"dtype": str(part.dtype), "shape": list(part.shape)}
+            if start is not None:
+                entry["rows"] = [int(start), int(start) + int(part.shape[0])]
+                entry["full_rows"] = int(arr.shape[0])
+                key = f"{key}{_SEP}{_ROWS}{int(start)}"
+            flat[key] = part
+            arrays_meta[key] = entry
 
         def write():
             try:
@@ -260,16 +315,22 @@ class Checkpointer:
                              "arrays": arrays_meta}
                 tmp = self.dir / f".tmp-{step}"
                 final = self.dir / f"step_{step:010d}"
-                if tmp.exists():
-                    shutil.rmtree(tmp)
-                tmp.mkdir(parents=True)
-                (tmp / _ARRAYS).write_bytes(blob)
-                meta["manifest"] = {"n_hosts": 1,
-                                    "files": {_ARRAYS: file_meta}}
-                (tmp / "meta.json").write_text(json.dumps(meta))
-                if final.exists():
-                    shutil.rmtree(final)
-                os.rename(tmp, final)          # atomic commit
+                if n_hosts == 1 and generation is None:
+                    # one writer: no commit race, so overwriting is safe
+                    if tmp.exists():
+                        shutil.rmtree(tmp)
+                    tmp.mkdir(parents=True)
+                    (tmp / _ARRAYS).write_bytes(blob)
+                    meta["manifest"] = {"n_hosts": 1,
+                                        "files": {_ARRAYS: file_meta}}
+                    (tmp / "meta.json").write_text(json.dumps(meta))
+                    if final.exists():
+                        shutil.rmtree(final)
+                    os.rename(tmp, final)          # atomic commit
+                elif not self._stage_and_commit(
+                        step, tmp, final, blob, file_meta, meta, host_id,
+                        n_hosts, generation):
+                    return      # another writer completes or committed
                 self._prune()
             except BaseException as e:        # surfaced on next wait()
                 self.last_error = e
@@ -282,6 +343,72 @@ class Checkpointer:
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
+
+    def _stage_and_commit(self, step, tmp, final, blob, file_meta, meta,
+                          host_id, n_hosts, generation) -> bool:
+        """Stage this host's part; commit if it completes the set.  True
+        when this writer committed the step."""
+        gen_tag = "" if generation is None else f"-g{int(generation):06d}"
+        # the sidecar lands before the part is visible, so a visible part
+        # always has its manifest on disk
+        tmp.mkdir(parents=True, exist_ok=True)
+        part = tmp / f"shard{host_id:03d}-of-{n_hosts:03d}{gen_tag}.npz"
+        (tmp / (part.name + _MANIFEST_SUFFIX)).write_text(
+            json.dumps(file_meta))
+        part_tmp = part.with_suffix(".npz.tmp")
+        part_tmp.write_bytes(blob)
+        os.replace(part_tmp, part)
+        parts = sorted(tmp.glob(f"shard*-of-{n_hosts:03d}{gen_tag}.npz"))
+        if len(parts) < n_hosts:
+            return False        # another host completes the set
+        # Writers on separate processes reach a boundary nearly together,
+        # so both can see a full set: exactly one claims the commit with an
+        # O_EXCL marker beside the staging dir, and the other backs off
+        # instead of renaming (or deleting) the committed step.  The claim
+        # carries the generation, so one left by a writer that died
+        # mid-commit never blocks a relaunch from committing the step.
+        claim = self.dir / f".tmp-{step}.claim{gen_tag}"
+        try:
+            os.close(os.open(str(claim),
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        except FileExistsError:
+            return False        # the other completing writer commits
+        try:
+            files = {}
+            for p in parts:
+                side = tmp / (p.name + _MANIFEST_SUFFIX)
+                files[p.name] = json.loads(side.read_text())
+                side.unlink()
+            if generation is not None:
+                # anything still staged outside this generation's set is a
+                # part (or a torn tmp / sidecar) of a generation that died
+                # mid-checkpoint: evict it
+                keep = {p.name for p in parts}
+                evicted = []
+                for f in sorted(tmp.iterdir()):
+                    if f.name not in keep:
+                        f.unlink()
+                        evicted.append(f.name)
+                if evicted:
+                    meta["evicted_stale"] = evicted
+            meta["manifest"] = {"n_hosts": n_hosts, "files": files}
+            (tmp / "meta.json").write_text(json.dumps(meta))
+            # never delete `final` first: a straggling writer can still get
+            # here once the claim is released, and deleting would destroy
+            # the boundary a resume depends on.  The rename is the commit;
+            # its failure with the boundary present means the other won.
+            os.rename(tmp, final)
+        except OSError:
+            if (final / "meta.json").exists():
+                claim.unlink(missing_ok=True)
+                return False    # lost the race: the boundary is committed
+            raise
+        for c in self.dir.glob(f".tmp-{step}.claim*"):
+            try:
+                c.unlink()
+            except OSError:     # pragma: no cover
+                pass
+        return True
 
     def wait(self):
         if self._thread is not None:
@@ -464,9 +591,10 @@ class Checkpointer:
         :class:`CheckpointCorrupt` before anything is loaded.
         ``expect_compat`` (a :func:`cfg_compat` dict) raises
         :class:`CheckpointIncompatible` when the checkpoint was written under
-        another config fingerprint, as does a step in the multi-host
-        layout.  A missing step (or an empty directory) raises
-        :class:`CheckpointNotFound` naming the available steps."""
+        another config fingerprint.  A missing step (or an empty
+        directory) raises :class:`CheckpointNotFound` naming the available
+        steps.  Per-host shard files merge by row offset
+        (:meth:`_load_merged`), whatever host count wrote them."""
         steps = self.all_steps()
         if step is None:
             if not steps:
@@ -480,20 +608,42 @@ class Checkpointer:
             self._verified_step = step
         else:
             meta = json.loads((d / "meta.json").read_text())
-        man = meta.get("manifest") or {}
-        files = sorted(man.get("files") or (p.name for p in d.glob("*.npz")))
-        if files != [_ARRAYS] or int(meta.get("n_hosts", 1)) != 1:
-            raise CheckpointIncompatible(d, step, {"layout": (
-                f"{len(files)} file(s) {files}, n_hosts="
-                f"{meta.get('n_hosts')}", f"one {_ARRAYS}, n_hosts=1")})
         if expect_compat is not None:
             mism = _compat_mismatches(meta.get("compat") or {},
                                       expect_compat)
             if mism:
                 raise CheckpointIncompatible(d, step, mism)
-        with np.load(d / _ARRAYS, allow_pickle=False) as z:
-            flat = {k: z[k] for k in z.files}
-        return _unflatten_into(like_tree, flat), meta
+        return _unflatten_into(like_tree, self._load_merged(d, meta)), meta
+
+    def _load_merged(self, d: Path, meta: Optional[dict] = None) -> dict:
+        """The flat arrays of one committed step directory: plain keys as
+        they are, ``key||@rows<start>`` slices concatenated by offset.  The
+        one-host ``arrays.npz`` is the n_hosts = 1 case of the same reader.
+
+        Where ``meta`` has a manifest, only the files it names are read:
+        the committing generation wrote it, so a stale-generation part that
+        survived into the directory is left out rather than merged (the
+        verifying reader flags it as a stray)."""
+        man = (meta or {}).get("manifest")
+        if isinstance(man, dict) and man.get("files"):
+            files = [d / name for name in sorted(man["files"])]
+        else:
+            files = sorted(d.glob("shard*-of-*.npz")) or [d / _ARRAYS]
+        flat, sliced = {}, {}
+        for f in files:
+            with np.load(f, allow_pickle=False) as z:
+                for key in z.files:
+                    if _SEP + _ROWS in key:
+                        base, _, start = key.rpartition(_SEP + _ROWS)
+                        sliced.setdefault(base, []).append(
+                            (int(start), z[key]))
+                    else:
+                        flat[key] = z[key]
+        for base, parts in sliced.items():
+            parts.sort(key=lambda p: p[0])
+            flat[base] = np.concatenate([a for _, a in parts], axis=0) \
+                if len(parts) > 1 else parts[0][1]
+        return flat
 
     def restore_verified(self, like_tree: Any, step: Optional[int] = None,
                          expect_compat: Optional[dict] = None):

@@ -26,9 +26,16 @@ policy; rank 0 prints the reference's ``[embed]`` line and the backend:
   PYTHONPATH=src python -m repro_torch.launch.embed --devices 2 --model 2 \
       --device cpu --dataset blobs --n 256 --iters 20
 
-The multi-host options (``--hosts``, ``--num-processes``, ``--process-id``,
-``--coordinator``) belong to the elastic runtime's multi-host part (A6b)
-and raise ``NotImplementedError``.
+``--hosts H`` splits those ranks into H simulated hosts (each writes its
+own row shard of every checkpoint; ``fit_elastic``'s host loss drops one).
+``--num-processes N --process-id I --coordinator H:P`` joins a real
+multi-process pod instead: every process runs this command with the same
+coordinator and its own id, joins one ``torch.distributed`` process group
+and runs ``fit_elastic`` on it (each process checkpoints its own
+generation-tagged row shard); process 0 prints the ``[embed]`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.embed --num-processes 2 \
+      --process-id 0 --coordinator 127.0.0.1:29500 --device cpu ...
 """
 from __future__ import annotations
 
@@ -64,8 +71,9 @@ def _sync(dev: torch.device) -> None:
 
 
 def _embed_rank(rank, world, dev, args):
-    """One rank of ``--devices``: ``fit_elastic`` on the grid; rank 0
-    returns the ``[embed]`` line's numbers and Y, the others None."""
+    """One rank of ``--devices`` or one process of ``--num-processes``:
+    ``fit_elastic`` on the grid; rank 0 returns the ``[embed]`` line's
+    numbers and Y, the others None."""
     import torch.distributed as dist
 
     from repro_torch.runtime.coordinator import fit_elastic
@@ -83,7 +91,8 @@ def _embed_rank(rank, world, dev, args):
         if args.checkpoint_dir or args.audit_every else None
     t0 = time.perf_counter()
     st = fit_elastic(Xt, cfg=cfg, n_iter=args.iters, chunk_size=args.chunk,
-                     hparams=hp, model=args.model, resilience=policy,
+                     hparams=hp, n_hosts=args.hosts, model=args.model,
+                     resilience=policy,
                      resume_from=args.checkpoint_dir if args.resume else None,
                      device=dev)
     _sync(dev)
@@ -92,6 +101,34 @@ def _embed_rank(rank, world, dev, args):
         return None
     return {"n": n, "dt": dt, "auc": float(embedding_quality(Xt, st.Y)),
             "Y": st.Y.cpu().numpy(), "backend": dist.get_backend()}
+
+
+def _join_pod(args, dev, run):
+    """This process's part of a real pod: join the process group at
+    ``--coordinator`` and run :func:`_embed_rank`; process 0 returns the
+    ``[embed]`` line's numbers."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import join_group
+
+    rdev = join_group(dev, args.num_processes, args.process_id,
+                      f"tcp://{args.coordinator}")
+    try:
+        return _embed_rank(args.process_id, args.num_processes, rdev, run)
+    finally:
+        dist.destroy_process_group()
+
+
+def _print_pod_line(args, res, iters, T, dev):
+    n_dev = args.num_processes if args.num_processes > 1 else args.devices
+    print(f"[embed] {args.dataset} n={res['n']} iters={iters} chunk={T} "
+          f"devices={n_dev} model={args.model} hosts={args.hosts} "
+          f"processes={args.num_processes} backend={res['backend']} "
+          f"device={dev.type}: {res['dt']:.1f}s (build included), "
+          f"R_NX AUC={res['auc']:.3f}")
+    if args.out:
+        np.save(args.out, res["Y"])
+        print(f"[embed] wrote {args.out}")
 
 
 def main(argv=None):
@@ -127,43 +164,49 @@ def main(argv=None):
     ap.add_argument("--model", type=int, default=1,
                     help="requested model-axis width (the largest feasible "
                          "width <= this is used)")
-    for flag, kind in (("--hosts", int), ("--num-processes", int),
-                       ("--process-id", int), ("--coordinator", str)):
-        ap.add_argument(flag, type=kind, default=None,
-                        help="multi-host elastic runtime (A6b): raises "
-                             "NotImplementedError")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="simulated hosts (contiguous blocks of the "
+                         "--devices ranks); per-host checkpoint shard files "
+                         "when --checkpoint-dir is set")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help=">1 joins a real multi-process pod: every process "
+                         "runs this command with the same --coordinator "
+                         "and a distinct --process-id")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank in the pod (required when "
+                         "--num-processes > 1)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0's process-group store "
+                         "(required when --num-processes > 1)")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
-    unported = [f for f, off in (("hosts", (None, 1)),
-                                 ("num_processes", (None, 1)),
-                                 ("process_id", (None,)),
-                                 ("coordinator", (None,)))
-                if getattr(args, f) not in off]
-    if unported:
-        raise NotImplementedError(
-            "the multi-host elastic runtime (A6b) is not ported yet: "
-            f"{['--' + f.replace('_', '-') for f in unported]}")
+    multiprocess = args.num_processes > 1
+    if multiprocess:
+        if args.process_id is None or args.coordinator is None:
+            ap.error("--num-processes > 1 requires --process-id "
+                     "and --coordinator")
+        if args.hosts != 1:
+            ap.error("--hosts simulates a pod on one process; a real "
+                     "multi-process pod must keep --hosts 1")
 
     dev = funcsne.resolve_device(args.device)
     T = max(1, min(args.chunk, args.iters))
     n_chunks = max(1, args.iters // T)
     iters = n_chunks * T                 # schedule horizon == steps run
+    run = dict(vars(args), iters=iters, chunk=T)
+    if multiprocess:
+        res = _join_pod(args, dev, run)
+        if res is not None:
+            _print_pod_line(args, res, iters, T, dev)
+        return
     if args.devices > 1:
         from repro_torch.launch.mesh import run_ranks
         # the elastic loop owns the run on every rank (reduced health
-        # probes, rank 0's checkpoints, rollback)
-        run = dict(vars(args), iters=iters, chunk=T)
+        # probes, per-host checkpoint shards, rollback, host loss)
         res = run_ranks(_embed_rank, args.devices, (run,), device=dev,
                         timeout=None)[0]
-        print(f"[embed] {args.dataset} n={res['n']} iters={iters} chunk={T} "
-              f"devices={args.devices} model={args.model} hosts=1 "
-              f"processes={args.devices} backend={res['backend']} "
-              f"device={dev.type}: {res['dt']:.1f}s (build included), "
-              f"R_NX AUC={res['auc']:.3f}")
-        if args.out:
-            np.save(args.out, res["Y"])
-            print(f"[embed] wrote {args.out}")
+        _print_pod_line(args, res, iters, T, dev)
         return
 
     X, _ = load_dataset(args.dataset, args.n)

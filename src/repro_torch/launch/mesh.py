@@ -23,9 +23,13 @@ needs along named axes:
 :func:`run_ranks` starts W ranks on this machine (start method ``spawn``,
 a free localhost port, ``init_process_group`` with a timeout so a dead
 peer fails its siblings instead of hanging them) and joins them under a
-hard time limit.  :func:`pick_backend` is its transport rule: NCCL where
-every rank has a CUDA device of its own, gloo where the tensors are on
-the CPU or ranks share one card.  The backend moves bytes only: every
+hard time limit.  Its ranks stand in for the devices of one process, the
+reference's simulated pod (:func:`simulated_pod`); a process group formed
+otherwise (``runtime.control``'s workers, ``launch.embed
+--num-processes``, each process joined by :func:`join_group`) is a real
+pod, one process a host.  :func:`pick_backend` is its transport rule:
+NCCL where every rank has a CUDA device of its own, gloo where the
+tensors are on the CPU or ranks share one card.  The backend moves bytes only: every
 rank's kernels run on its card either way.  The collectives are list
 ``all_gather`` and ``all_reduce``, which both torch 2.11 and 2.13 offer,
 and gloo takes CUDA tensors for both.
@@ -58,6 +62,19 @@ def host_device_blocks(devices, n_hosts: int) -> list:
         raise ValueError(f"n_hosts={n_hosts} for {n} devices")
     return [devices[h * n // n_hosts:(h + 1) * n // n_hosts]
             for h in range(n_hosts)]
+
+
+# True in a rank that run_ranks started: such ranks stand in for the devices
+# of one process (the reference's simulated pod), where ranks joined in a
+# process group of their own are the processes of a real pod
+_IN_RUN_RANKS = [False]
+
+
+def simulated_pod() -> bool:
+    """Whether this process is a rank of :func:`run_ranks` (the ranks of one
+    simulated pod) rather than a process of a real pod (a process group
+    started by ``runtime.control`` or ``launch.embed --num-processes``)."""
+    return _IN_RUN_RANKS[0]
 
 
 def batch_axes(mesh) -> tuple:
@@ -312,6 +329,29 @@ def rank_device(device, rank: int) -> torch.device:
     return torch.device("cuda", rank % max(1, torch.cuda.device_count()))
 
 
+# the rendezvous and each collective of a process joined by join_group:
+# jax.distributed.initialize's default, so that processes started by hand
+# have time to meet, and a peer that hangs fails the others after it
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
+def join_group(device, world: int, rank: int, init_method: str,
+               timeout_s: float = COLLECTIVE_TIMEOUT_S,
+               backend: Optional[str] = None) -> torch.device:
+    """Join the process group as ``rank`` of ``world`` at ``init_method``
+    (``tcp://host:port``) on this rank's device (:func:`rank_device`), with
+    the backend of :func:`pick_backend` unless one is given, each collective
+    bounded by ``timeout_s``; returns the rank's device."""
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend or pick_backend(device, world), init_method=init_method,
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return dev
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -321,15 +361,11 @@ def _free_port() -> int:
 def _rank_main(rank, world, port, backend, device, threads, timeout_s, fn,
                args, out_q):
     try:
+        _IN_RUN_RANKS[0] = True
         if threads:
             torch.set_num_threads(threads)
-        dev = rank_device(device, rank)
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}",
-            world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=timeout_s))
+        dev = join_group(device, world, rank, f"tcp://127.0.0.1:{port}",
+                         timeout_s, backend)
         try:
             result = fn(rank, world, dev, *args)
         finally:

@@ -1,5 +1,5 @@
-"""The resilient loop on a grid of ranks (port of
-``repro.runtime.coordinator.fit_elastic`` for one host).
+"""Elastic coordinator of the resilient embedding runtime (port of
+``repro.runtime.coordinator``).
 
 :func:`fit_elastic` is ``funcsne.fit``'s rollback / checkpoint loop on the
 distributed step: every rank of the grid runs it, SPMD, on its replica of
@@ -13,14 +13,32 @@ or the next collective waits forever:
   * the straggler alarm is decided by one rank's clock, so it only logs
     (the reference's multi-process mode): no rank commits an early
     checkpoint on its own;
-  * the grid's first rank writes the checkpoint, in the reference's
-    one-host layout, and every rank restores it on ``resume_from``
-    (after a barrier, so no rank reads before the last write landed).
+  * checkpoints are written per host (``Checkpointer.save(
+    host_shard_filter=...)``), so their I/O scales with the pod, and every
+    rank restores on ``resume_from`` (after a barrier, so no rank reads
+    before the last write landed).
 
-Left to the elastic runtime's multi-host part: ``n_hosts > 1``, the
-``generation``-tagged per-host shard files and the host-loss handler
-(remesh over the survivors, then resume); they raise
-``NotImplementedError``.
+A host is what the reference calls one, in its two modes:
+
+  * **simulated pod** (the ranks of one ``launch.mesh.run_ranks`` group,
+    standing in for the devices of one JAX process): ``n_hosts`` splits
+    the ranks into contiguous blocks, the first rank of each block writes
+    its host's row shard, and a host loss is an injected
+    ``faults.HostLost``: the survivors quiesce (every write in flight
+    lands), ``elastic.remesh`` builds the grid over the ranks left, the
+    last committed boundary is restored onto it and the schedule replays
+    from its step (the lost ranks return None);
+  * **real pod** (a process group started by ``runtime.control`` or
+    ``launch.embed --num-processes``): every process writes its own
+    generation-tagged row shard (``generation`` defaults to 0), and
+    liveness goes through the ``on_boundary`` hook.  A process death is
+    not handled here: the supervisor kills the whole generation and
+    relaunches it over the survivors, which re-enter this function with
+    ``resume_from`` at the last committed boundary.
+
+Chunk boundaries are bit-neutral, so no iteration is lost or repeated
+across a remesh; the replayed steps differ from an uninterrupted run only
+by the smaller grid's grouping of the collective sums.
 """
 from __future__ import annotations
 
@@ -32,10 +50,11 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint import Checkpointer, cfg_compat
+from repro_torch.checkpoint import Checkpointer, cfg_compat, row_shard_filter
 from repro_torch.core import funcsne
 from repro_torch.core.resilience import EmbeddingDiverged
 from repro_torch.kernels import fallback
+from repro_torch.launch.mesh import host_device_blocks, simulated_pod
 from repro_torch.runtime import elastic, faults
 from repro_torch.runtime.straggler import StepTimeMonitor
 
@@ -65,33 +84,40 @@ def fit_elastic(X, *, cfg: "funcsne.FuncSNEConfig" = None,
                 resume_from=None,
                 on_boundary: Optional[Callable[[int], None]] = None,
                 generation: Optional[int] = None, device="cuda"):
-    """``funcsne.fit``'s rollback / checkpoint loop on the distributed step;
-    returns this rank's replica of the final state (None on a rank left out
-    of the grid).
+    """``funcsne.fit``'s rollback / checkpoint loop on the distributed step,
+    with elastic resume across a simulated host loss; returns this rank's
+    replica of the final state (None on a rank left out of the grid, or
+    lost with its host).
 
-    Called on every rank of the process group (``launch.mesh.run_ranks``;
-    without one, as a grid of one rank) with the whole ``X``.
-    ``devices`` is the number of ranks to use (default: all of them) and
-    ``model`` the requested model width: the grid is whatever
+    Called on every rank of the process group (``launch.mesh.run_ranks``,
+    or a real pod; without one, as a grid of one rank) with the whole
+    ``X``.  ``devices`` is the number of ranks to use (default: all of
+    them) and ``model`` the requested model width: the grid is whatever
     :func:`repro_torch.runtime.elastic.remesh` finds feasible for the rank
     count and ``cfg.dim_hd`` (X is split by columns over the model axis),
     a ``devices_dropped`` event when ranks are left out.  Each rank starts
     from ``state`` or ``init_state(X, cfg, seed=seed)``, computed on every
     rank alike.
 
+    ``n_hosts`` splits the ranks into contiguous blocks, the simulated
+    pod: every rank of the world must then take part (``devices`` all of
+    them), since the remesh after a loss builds its groups on every rank.
+    A :class:`~repro_torch.runtime.faults.HostLost` raised at a chunk
+    boundary is survived only when ``resilience.checkpoint_dir`` is set
+    and a boundary is committed; otherwise it propagates.  In a real pod
+    (a process group not started by ``run_ranks``) the process set is the
+    pod: ``n_hosts`` stays 1, every process writes its own row shard, and
+    ``generation`` defaults to 0.  A ``generation`` tags the shard files
+    (``shard<h>-of-<H>-g<G>.npz``, one host included).
+
     ``resilience`` (a :class:`~repro_torch.core.resilience.ResiliencePolicy`)
     arms rollback with backoff, ``EmbeddingDiverged``, checkpoints every
-    ``checkpoint_every`` healthy chunks (written by the grid's first rank),
-    the audit every ``audit_every`` and the straggler watchdog (logged
-    only); ``resume_from`` restores the newest boundary that verifies on
-    every rank.  ``on_boundary(it)`` is called at entry and after every
-    chunk boundary, retries included (a liveness hook; cheap, must not
-    raise).
+    ``checkpoint_every`` healthy chunks, the audit every ``audit_every``
+    and the straggler watchdog (logged only); ``resume_from`` restores the
+    newest boundary that verifies on every rank.  ``on_boundary(it)`` is
+    called at entry and after every chunk boundary, retries included (a
+    liveness hook; cheap, must not raise).
     """
-    if n_hosts != 1 or generation is not None:
-        raise NotImplementedError(
-            "n_hosts > 1 and generation-tagged checkpoint shards belong to "
-            "the multi-host elastic runtime (A6b), not ported yet")
     dev = funcsne.resolve_device(device)
     X = torch.as_tensor(X, dtype=torch.float32).to(dev).contiguous()
     if cfg is None:
@@ -104,27 +130,52 @@ def fit_elastic(X, *, cfg: "funcsne.FuncSNEConfig" = None,
         chunk_size = min(50, max(1, n_iter))
     on = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if on else 1
+    me = dist.get_rank() if on else 0
     n_ranks = world if devices is None else int(devices)
     if not 1 <= n_ranks <= world:
         raise ValueError(f"devices={devices} for a world of {world} ranks")
+    if not 1 <= n_hosts <= n_ranks:
+        raise ValueError(f"n_hosts={n_hosts} for {n_ranks} devices")
+    multiprocess = world > 1 and not simulated_pod()
+    if multiprocess:
+        if n_hosts != 1:
+            raise ValueError(
+                "n_hosts simulates pods on the ranks of run_ranks; in a "
+                "real pod the process set IS the pod (n_hosts=1)")
+        if generation is None:
+            generation = 0
+    if n_hosts > 1 and n_ranks < world:
+        raise ValueError(
+            f"n_hosts={n_hosts} needs every rank of the world in the grid "
+            f"(devices={n_ranks} of {world}): a remesh after a host loss "
+            "builds its groups on every rank")
     beat = on_boundary if on_boundary is not None else (lambda _it: None)
 
     policy = resilience
     log = policy.log if policy is not None else (lambda *a, **k: None)
-    grid = elastic.remesh(n_ranks, model=model, divides=(cfg.dim_hd,),
-                          on_event=(lambda e: policy.log(**e))
-                          if policy is not None else None)
-    if not grid.member:
-        me = dist.get_rank() if on else 0
-        log("rank_idle", rank=me, mesh=dict(grid.shape))
-        warnings.warn(f"[elastic] rank {me} is outside the {grid.shape} "
-                      "grid: it takes no step", RuntimeWarning)
+    on_grid_event = (lambda e: policy.log(**e)) if policy is not None \
+        else None
+
+    def build(ranks):
+        """The grid over ``ranks`` (every rank of the world calls this),
+        or None on a rank left out of it, after its ``rank_idle`` event."""
+        grid = elastic.remesh(len(ranks), model=model, ranks=ranks,
+                              divides=(cfg.dim_hd,), on_event=on_grid_event)
+        if not grid.member:
+            log("rank_idle", rank=me, mesh=dict(grid.shape))
+            warnings.warn(f"[elastic] rank {me} is outside the {grid.shape} "
+                          "grid: it takes no step", RuntimeWarning)
+            return None
+        return grid
+
+    ranks = list(range(n_ranks))
+    grid = build(ranks)
+    if grid is None:
         return None
-    lead = grid.axis_index(_ALL) == 0
     Xb = grid.column_block(X)
     ck = monitor = None
     if policy is not None:
-        if policy.checkpoint_dir is not None and lead:
+        if policy.checkpoint_dir is not None:
             ck = Checkpointer(policy.checkpoint_dir,
                               keep_last=policy.keep_last)
         monitor = StepTimeMonitor(z_thresh=policy.straggler_z,
@@ -134,24 +185,57 @@ def fit_elastic(X, *, cfg: "funcsne.FuncSNEConfig" = None,
         X, cfg, seed=seed, init=init, perplexity=hparams.perplexity,
         validate=False, device=dev)
 
-    start_it = 0
-    lr_scale = ex_scale = 1.0
-    if resume_from is not None:
-        grid.barrier()      # a write still landing on the first rank
-        rck = ck if (ck is not None
-                     and str(ck.dir) == str(resume_from)) else \
-            Checkpointer(resume_from)
-        st, meta, fbs = rck.restore_verified(
+    def restore_chain(rck):
+        """The newest boundary of ``rck`` that verifies, onto this rank's
+        device, with one ``checkpoint_fallback`` event per damaged
+        boundary skipped."""
+        tree, meta, fbs = rck.restore_verified(
             st, expect_compat=cfg_compat(cfg))
         for fb in fbs:
             log("checkpoint_fallback", **fb)
+        return tree, meta
+
+    start_it = 0
+    lr_scale = ex_scale = 1.0
+    if resume_from is not None:
+        grid.barrier()      # a write still landing on another rank
+        rck = ck if (ck is not None
+                     and str(ck.dir) == str(resume_from)) else \
+            Checkpointer(resume_from)
+        st, meta = restore_chain(rck)
         start_it = int(meta["step"])
         lr_scale = float(meta.get("lr_scale", 1.0))
         ex_scale = float(meta.get("ex_scale", 1.0))
         log("restore", step=start_it, source=str(resume_from),
             from_generation=meta.get("generation"))
 
-    chunks = {}         # T -> the chunk runner on this grid
+    def save_all_hosts(it, st):
+        """This rank's part of the boundary ``it``: in a real pod every
+        process its own row shard; with simulated hosts the first rank of
+        each host block its host's; with one host the grid's first rank
+        the whole tree.  The writer completing the set commits."""
+        if ck is None:
+            return
+        if multiprocess:
+            host, hosts = grid.axis_index(_ALL), grid.size
+        else:
+            host = next((h for h, b in enumerate(
+                host_device_blocks(ranks, n_hosts)) if b[0] == me), None)
+            hosts = n_hosts
+            if host is None:
+                return
+        meta = {"lr_scale": lr_scale, "ex_scale": ex_scale,
+                "compat": cfg_compat(cfg)}
+        tree = funcsne._checkpoint_state(st)
+        if hosts == 1:
+            ck.save(it, tree, metadata=meta, generation=generation)
+        else:
+            ck.save(it, tree, metadata=meta,
+                    host_shard_filter=row_shard_filter(host, hosts,
+                                                       cfg.n_points),
+                    host_id=host, n_hosts=hosts, generation=generation)
+
+    chunks = {}         # T -> the chunk runner on the current grid
     it = start_it
     retries = 0
     n_healthy = 0
@@ -212,14 +296,42 @@ def fit_elastic(X, *, cfg: "funcsne.FuncSNEConfig" = None,
             it += T
             if policy is not None:
                 n_healthy += 1
-                if ck is not None \
-                        and n_healthy % policy.checkpoint_every == 0:
-                    ck.save(it, funcsne._checkpoint_state(st), metadata={
-                        "lr_scale": lr_scale, "ex_scale": ex_scale,
-                        "compat": cfg_compat(cfg)})
+                if n_healthy % policy.checkpoint_every == 0:
+                    save_all_hosts(it, st)
             beat(it)
-            faults.maybe_corrupt_checkpoint(it, ck)
+            # one rank damages the committed boundary
+            faults.maybe_corrupt_checkpoint(
+                it, ck if grid.axis_index(_ALL) == 0 else None)
             faults.maybe_preempt(it)
+            try:
+                faults.maybe_host_loss(it)
+            except faults.HostLost as e:
+                # quiesce: every write in flight lands, on every rank, so
+                # the directory every rank reads next is the same
+                if ck is not None:
+                    ck.wait()
+                grid.barrier()
+                if ck is None or ck.latest_step() is None:
+                    raise   # nothing committed: the run is not resumable
+                log("host_lost", step=e.step, host=e.host)
+                lost = host_device_blocks(ranks, n_hosts)[e.host % n_hosts]
+                ranks = [r for r in ranks if r not in lost]
+                n_hosts = max(1, n_hosts - 1)
+                grid = build(ranks)
+                if grid is None:
+                    return None     # this rank went with its host
+                Xb = grid.column_block(X)
+                chunks.clear()      # the runners hold the old grid
+                # the fallback chain: the newest boundary may be one the
+                # lost host's write tore
+                st, meta = restore_chain(ck)
+                it = int(meta["step"])
+                lr_scale = float(meta.get("lr_scale", 1.0))
+                ex_scale = float(meta.get("ex_scale", 1.0))
+                retries = 0
+                log("remesh", step=it, host_lost=e.host,
+                    n_devices=len(ranks), n_hosts=n_hosts,
+                    mesh=dict(grid.shape))
         if ck is not None:
             ck.wait()   # an async write failure surfaces before returning
     return st

@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the resilient ``fit`` (port of the
-in-process part of ``repro.runtime.faults``).
+"""Deterministic fault injection for the resilient runtime (port of
+``repro.runtime.faults``).
 
 Every recovery path of ``funcsne.fit``'s resilience layer is exercised by
 scripted faults rather than by waiting for a card to misbehave:
@@ -24,6 +24,18 @@ scripted faults rather than by waiting for a card to misbehave:
                              (a kill between chunks); ``fit(resume_from=)``
                              must then reproduce the uninterrupted run bit
                              for bit;
+  :class:`HostLoss`          raises :class:`HostLost` at a chunk boundary:
+                             one simulated host (its block of ranks) drops
+                             out; ``runtime.coordinator.fit_elastic``
+                             quiesces the survivors, remeshes over the ranks
+                             left and resumes from the last committed
+                             boundary;
+  :class:`ProcessKill`       SIGKILLs the worker process itself at a chunk
+                             boundary, the real death :class:`HostLoss`
+                             only simulates; recovery is the supervisor's
+                             (``runtime.control``: kill the generation,
+                             remesh over the survivors, relaunch from the
+                             last committed generation-tagged boundary);
   :class:`CorruptShard`      damages the newest committed checkpoint on disk
                              (truncate / bit flip / delete), so that the
                              verified restore must fall back one boundary.
@@ -40,7 +52,9 @@ Usage::
         st, _ = funcsne.fit(X, resilience=ResiliencePolicy(), ...)
 
 ``python -m repro_torch.runtime.faults --smoke [--device cpu]`` runs the
-five recovery scenarios end to end on tiny data.
+seven recovery scenarios end to end on tiny data (``host_loss`` on two
+ranks of ``launch.mesh.run_ranks``, ``process_kill`` with two worker
+processes under the supervisor).
 """
 from __future__ import annotations
 
@@ -59,6 +73,15 @@ class Preempted(RuntimeError):
 
 class InjectedKernelFault(RuntimeError):
     """Raised in place of a kernel launch by :class:`KernelLaunchFault`."""
+
+
+class HostLost(RuntimeError):
+    """Simulated host loss: one host's ranks dropped out of the grid."""
+
+    def __init__(self, step: int, host: int):
+        super().__init__(f"simulated loss of host {host} at step {step}")
+        self.step = step
+        self.host = host
 
 
 def _poison_rows(st, field: str, rows: int, value):
@@ -231,6 +254,51 @@ class Preemption:
         raise Preempted(it)
 
 
+@dataclasses.dataclass
+class ProcessKill:
+    """SIGKILL this process at the first chunk boundary ``>= at_chunk``, iff
+    it runs as pod ``pod``: the real death :class:`HostLoss` simulates.
+    ``os.kill(getpid(), SIGKILL)`` on purpose: no atexit, no flush, no
+    teardown, as ``kill -9`` of a worker.  Nothing in the process survives
+    it; recovery is the supervisor's (``repro_torch.runtime.control``).
+    Checked from the worker's ``on_boundary`` hook through
+    :func:`maybe_process_kill`, after the boundary's checkpoint write was
+    started, so the kill races a write in flight as a real signal would
+    (generation-tagged shards make its leftovers harmless)."""
+    at_chunk: int
+    pod: int = 1
+    once: bool = True
+    fired: bool = False
+
+    def check(self, it: int, pod: int):
+        if pod != self.pod or (self.fired and self.once) \
+                or it < self.at_chunk:
+            return
+        self.fired = True
+        import os
+        import signal
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+@dataclasses.dataclass
+class HostLoss:
+    """Raise :class:`HostLost` at the first chunk boundary ``>= at_step``:
+    the simulated death of host ``host`` (its block of ranks).  Unlike
+    :class:`Preemption` the process survives: the elastic loop catches it,
+    drops the host's ranks, remeshes and resumes from the last committed
+    checkpoint on the smaller grid."""
+    at_step: int
+    host: int = 1
+    once: bool = True
+    fired: bool = False
+
+    def check(self, it: int):
+        if (self.fired and self.once) or it < self.at_step:
+            return
+        self.fired = True
+        raise HostLost(it, self.host)
+
+
 class FaultScript:
     """An ordered bag of fault objects consulted by the runtime hooks."""
 
@@ -252,6 +320,16 @@ class FaultScript:
         for f in self.faults:
             if isinstance(f, CorruptShard):
                 f.check(it, ck)
+
+    def maybe_host_loss(self, it: int):
+        for f in self.faults:
+            if isinstance(f, HostLoss):
+                f.check(it)
+
+    def maybe_process_kill(self, it: int, pod: int):
+        for f in self.faults:
+            if isinstance(f, ProcessKill):
+                f.check(it, pod)
 
     def check_kernel(self, family: str):
         for f in self.faults:
@@ -292,6 +370,16 @@ def maybe_preempt(it: int):
 def maybe_corrupt_checkpoint(it: int, ck):
     if _ACTIVE is not None and ck is not None:
         _ACTIVE.maybe_corrupt_checkpoint(it, ck)
+
+
+def maybe_host_loss(it: int):
+    if _ACTIVE is not None:
+        _ACTIVE.maybe_host_loss(it)
+
+
+def maybe_process_kill(it: int, pod: int):
+    if _ACTIVE is not None:
+        _ACTIVE.maybe_process_kill(it, pod)
 
 
 def check_kernel(family: str):
@@ -516,12 +604,177 @@ def scenario_index_audit(device="cuda") -> dict:
     return {"tripped": viol["reason"][:48], "control_missed": missed[:48]}
 
 
+def _host_loss_rank(rank, world, dev, tmpdir):
+    """One rank of :func:`scenario_host_loss`: an uninterrupted
+    ``fit_elastic`` on two simulated hosts, then one whose host 1 is lost
+    at step 8.  Rank 0 returns what the scenario checks; the rank lost
+    with its host returns its events."""
+    import torch
+
+    from repro_torch.core.resilience import ResiliencePolicy
+    from repro_torch.runtime.coordinator import fit_elastic
+
+    X, cfg = _smoke_setup()
+    X = torch.from_numpy(X)
+    kw = dict(cfg=cfg, n_iter=16, chunk_size=4, n_hosts=2, device=dev)
+    st_ref = fit_elastic(X, resilience=ResiliencePolicy(), **kw)
+    policy = ResiliencePolicy(checkpoint_dir=tmpdir, checkpoint_every=1)
+    with active(FaultScript(HostLoss(at_step=8, host=1))):
+        st = fit_elastic(X, resilience=policy, **kw)
+    if st is None:
+        return {"events": policy.events}
+    return {"events": policy.events, "step": int(st.step),
+            "finite": bool(st.Y.isfinite().all()),
+            "ref_std": float(st_ref.Y.std()), "std": float(st.Y.std())}
+
+
+def scenario_host_loss(device="cuda", tmpdir=None) -> dict:
+    """One simulated host (rank 1 of two ``launch.mesh.run_ranks`` ranks,
+    gloo) dies mid-run; the elastic loop quiesces, remeshes over the
+    survivor and resumes from the last committed chunk boundary.  The run
+    finishes every iteration on the smaller grid with an embedding whose
+    spread matches the uninterrupted run's (bitwise parity is not expected:
+    the smaller grid regroups the force sum)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    own = tmpdir is None
+    if own:
+        tmpdir = tempfile.mkdtemp(prefix="funcsne-hostloss-")
+    try:
+        got, lost = run_ranks(_host_loss_rank, 2, (tmpdir,), device=device,
+                              timeout=300.0)
+    finally:
+        if own:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+    assert got["step"] == 16, got["step"]
+    assert got["finite"], "embedding not finite after remesh"
+    kinds = [e["kind"] for e in got["events"]]
+    assert "host_lost" in kinds and "remesh" in kinds, kinds
+    assert [e["kind"] for e in lost["events"]] == ["host_lost", "rank_idle"]
+    # the layout kept optimising after the remesh instead of resetting or
+    # freezing: its spread is within 2x of the uninterrupted run's
+    ref, std = got["ref_std"], got["std"]
+    assert 0.5 * ref <= std <= 2.0 * ref, (ref, std)
+    return {"host_lost": 1, "resumed_at": next(
+        e["step"] for e in got["events"] if e["kind"] == "remesh"),
+        "spread_ratio": round(std / max(ref, 1e-9), 3)}
+
+
+def check_process_kill(sup, report: dict, n_iter: int) -> dict:
+    """Every assertion of :func:`scenario_process_kill` on a finished
+    supervised run (``sup.run()``'s ``report``) in which pod 1 of two was
+    killed: the result, the generations, the committed steps, the trail's
+    causal order, no orphaned pid, no stale-generation shard.  Returns the
+    relaunched generation's ``restore`` event."""
+    import errno
+    import json as _json
+    import os
+
+    from repro_torch.runtime import control
+
+    # the survivor finished every iteration and committed the boundary
+    assert report["result"]["step"] == n_iter, report["result"]
+    assert report["result"]["finite"], report["result"]
+    assert report["generations"] == 2, report["generations"]
+    steps = control.committed_steps(sup.ckpt_dir)
+    assert steps and steps[-1] == n_iter, steps
+
+    # the trail, in causal order:
+    # heartbeat_lost -> generation_killed -> remesh -> restore
+    kinds = [e["kind"] for e in report["trail"]]
+    order = [kinds.index(k) for k in
+             ("heartbeat_lost", "generation_killed", "remesh",
+              "restore")]
+    assert order == sorted(order), kinds
+    lost = next(e for e in report["trail"]
+                if e["kind"] == "heartbeat_lost")
+    assert lost["pod"] == 1, lost
+    rem = next(e for e in report["trail"] if e["kind"] == "remesh")
+    assert rem["survivors"] == [0] and rem["n_processes"] == 1, rem
+    restore = next(e for e in report["trail"]
+                   if e["kind"] == "restore")
+    assert restore["generation"] == 1, restore
+    assert 0 < restore["step"] < n_iter, restore
+
+    # no orphaned process: every pid the supervisor spawned is gone
+    # (the supervisor waits for every worker it kills)
+    for pid in report["pids"]:
+        try:
+            os.kill(pid, 0)
+            raise AssertionError(f"orphaned worker pid {pid}")
+        except OSError as e:
+            assert e.errno == errno.ESRCH, e
+
+    # no stale-generation shard: every committed step holds only the
+    # files its own manifest names, and the final boundary belongs to
+    # the surviving generation
+    for s in steps:
+        d = sup.ckpt_dir / f"step_{s:010d}"
+        meta = _json.loads((d / "meta.json").read_text())
+        want = set(meta["manifest"]["files"])
+        have = {p.name for p in d.glob("*.npz")}
+        assert have == want, (s, have, want)
+        gen = meta.get("generation")
+        tag = f"-g{gen:06d}.npz"
+        assert all(f.endswith(tag) for f in want), (s, gen, want)
+    final_meta = _json.loads(
+        (sup.ckpt_dir / f"step_{steps[-1]:010d}" / "meta.json")
+        .read_text())
+    assert final_meta.get("generation") == 1, final_meta
+    return restore
+
+
+def scenario_process_kill(device="cuda", tmpdir=None) -> dict:
+    """The real death: a pod of two worker processes (a gloo process group
+    under ``runtime.control``'s supervisor), one SIGKILLs itself mid-run,
+    and the supervisor finishes the embedding anyway: heartbeat loss
+    detected, the generation killed, a remesh over the survivor, resume
+    from the last committed generation-tagged boundary.  Asserts the event
+    trail, the final committed step, no orphaned worker process and no
+    stale-generation shard on disk."""
+    import os
+
+    if os.environ.get("FUNCSNE_NO_MULTIPROCESS") == "1":
+        return {"skipped": "FUNCSNE_NO_MULTIPROCESS=1"}
+
+    from repro_torch.runtime import control
+
+    if not control.gloo_available():
+        return {"skipped": "no gloo collectives in this torch"}
+
+    import shutil
+    import tempfile
+
+    own = tmpdir is None
+    if own:
+        tmpdir = tempfile.mkdtemp(prefix="funcsne-prockill-")
+    n_iter, chunk = 16, 4
+    try:
+        sup = control.Supervisor(
+            tmpdir, n_pods=2, n_iter=n_iter, chunk_size=chunk, n=64, dim=6,
+            device=device, kill_pod=1, kill_at_chunk=8,
+            heartbeat_timeout=20.0, total_timeout=480.0)
+        report = sup.run()
+        restore = check_process_kill(sup, report, n_iter)
+    finally:
+        if own:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+    return {"resumed_at": restore["step"],
+            "final_step": report["result"]["step"],
+            "generations": report["generations"]}
+
+
 SCENARIOS = {
     "nan_rollback": scenario_nan_rollback,
     "kernel_fallback": scenario_kernel_fallback,
     "preempt_resume": scenario_preempt_resume,
+    "host_loss": scenario_host_loss,
     "corrupt_restore": scenario_corrupt_restore,
     "index_audit": scenario_index_audit,
+    "process_kill": scenario_process_kill,
 }
 
 
@@ -538,6 +791,8 @@ def main(argv=None) -> int:
                     help="cuda (the kernels) or cpu (the plain versions)")
     ap.add_argument("--only", default=None,
                     help="comma-separated scenario names")
+    ap.add_argument("--no-skip", action="store_true",
+                    help="fail any scenario that reports itself skipped")
     args = ap.parse_args(argv)
     if not args.smoke:
         ap.print_help()
@@ -550,6 +805,15 @@ def main(argv=None) -> int:
         t0 = time.time()
         try:
             info = SCENARIOS[name](device=args.device)
+            if isinstance(info, dict) and "skipped" in info:
+                if args.no_skip:
+                    failed += 1
+                    print(f"[faults] {name}: FAILED: required scenario "
+                          f"skipped: {info['skipped']}", flush=True)
+                else:
+                    print(f"[faults] {name}: skipped: {info['skipped']}",
+                          flush=True)
+                continue
             print(f"[faults] {name}: OK in {time.time() - t0:.1f}s {info}",
                   flush=True)
         except Exception as e:

@@ -197,8 +197,9 @@ def test_stray_file_and_missing_manifest_detected(tmp_path):
 
 def test_multihost_checkpoint_verifies_but_is_refused(tmp_path):
     """A JAX checkpoint in the multi-host layout (row-sliced shard files)
-    passes the port's fsck, and its restore raises CheckpointIncompatible
-    (the multi-host reader is not ported)."""
+    passes the port's fsck, and its restore merges the shards by row
+    offset into the tree the JAX ``Checkpointer`` restores, bit for bit
+    (the port's restore no longer refuses the layout)."""
     jck = j_ck.Checkpointer(tmp_path, keep_last=5)
     tree = {k: np.asarray(v) for k, v in _tree().items()}
     for h in range(2):
@@ -210,11 +211,14 @@ def test_multihost_checkpoint_verifies_but_is_refused(tmp_path):
     out = io.StringIO()
     assert verify_dir(tmp_path, out=out) == 0
     assert out.getvalue() == "step 1: OK (2 shard file(s), n_hosts=2)\n"
-    with pytest.raises(CheckpointIncompatible, match="n_hosts=2") as ei:
-        ck.restore(_like())
-    assert "layout" in ei.value.mismatches
-    with pytest.raises(CheckpointIncompatible):
-        ck.restore_verified(_like())
+    want, jmeta = j_ck.Checkpointer(tmp_path).restore(
+        {k: np.zeros_like(v) for k, v in tree.items()})
+    for got, meta in (ck.restore(_like()), ck.restore_verified(_like())[:2]):
+        assert meta["n_hosts"] == 2 and meta["step"] == jmeta["step"] == 1
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+            np.testing.assert_array_equal(got[k].numpy(), tree[k],
+                                          err_msg=k)
 
 
 def test_row_coverage_gap_detected(tmp_path):

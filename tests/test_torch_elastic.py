@@ -11,8 +11,11 @@ reference's contracts (tests/test_elastic_resume.py, tests/test_resilience.py):
     left out of the grid takes no step;
   * a preempted run resumed from its checkpoints ends bit for bit on the
     clean run's state, and the reference's fsck accepts the directory;
-  * the CLI's ``--devices 2 --model 2`` runs; the multi-host options
-    raise ``NotImplementedError`` naming A6b.
+  * the CLI's ``--devices 2 --model 2`` runs; each multi-host option alone
+    does what the reference's does (a one-device run, or the reference's
+    argument error), and ``fit_elastic``'s ``n_hosts`` / ``generation`` on
+    one rank behave as the reference's (its ValueError; the
+    generation-tagged layout, which the reference restores).
 Every multi-process call has its own time limit (``run_ranks``).
 """
 import io
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 import torch_dist_ranks as tdr
+from repro_torch.core import convert
 from repro_torch.launch import embed as t_embed
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.runtime import coordinator, elastic
@@ -158,14 +162,70 @@ def test_cli_devices_two_model_two():
                                   ["--process-id", "0"],
                                   ["--coordinator", "localhost:1234"]],
                          ids=lambda a: a[0])
-def test_multi_host_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="A6b"):
-        t_embed.main(argv + ["--device", "cpu"])
+def test_multi_host_options_raise(argv, monkeypatch, capsys):
+    """Each multi-host option alone, as the reference reads it: ``--hosts``,
+    ``--process-id`` and ``--coordinator`` leave a run of one process on
+    one device, which finishes on the one-device path; ``--num-processes 2``
+    without ``--process-id`` / ``--coordinator`` is the reference's
+    argument error, word for word."""
+    if argv[0] == "--num-processes":
+        pytest.importorskip("jax")
+        from repro.launch import embed as j_embed
+
+        def error(run):
+            with pytest.raises(SystemExit) as ei:
+                run()
+            assert ei.value.code == 2
+            return capsys.readouterr().err.splitlines()[-1]
+        monkeypatch.setattr(sys, "argv", ["embed.py"] + argv)
+        want = error(j_embed.main)
+        assert error(lambda: t_embed.main(argv + ["--device", "cpu"])) \
+            == want
+        assert "requires --process-id and --coordinator" in want
+        return
+    t_embed.main(argv + ["--device", "cpu", "--dataset", "blobs", "--n",
+                         "64", "--iters", "2"])
+    line = [s for s in capsys.readouterr().out.splitlines()
+            if s.startswith("[embed]")]
+    assert len(line) == 1 and "it/s" in line[0] and "devices=" not in line[0]
 
 
 @pytest.mark.parametrize("kw", [{"n_hosts": 2}, {"generation": 0}],
                          ids=lambda k: next(iter(k)))
-def test_fit_elastic_multi_host_raises(kw):
+def test_fit_elastic_multi_host_raises(kw, tmp_path):
+    """On one rank: ``n_hosts=2`` raises the reference's ValueError (two
+    hosts need two devices); ``generation=0`` runs and writes the
+    generation-tagged layout of one host, which the reference's fsck and
+    ``Checkpointer`` accept."""
+    jax = pytest.importorskip("jax")
+    from repro import checkpoint as j_ck
+    from repro.checkpoint import verify as j_verify
+    from repro.core.funcsne import FuncSNEState as JState
+    from repro.runtime.coordinator import fit_elastic as j_fit_elastic
+
+    from repro_torch.core.resilience import ResiliencePolicy
+
     X = torch.from_numpy(tdr.quantised_blobs(n=64))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        coordinator.fit_elastic(X, n_iter=2, device="cpu", **kw)
+    if "n_hosts" in kw:
+        with pytest.raises(ValueError) as ej:
+            j_fit_elastic(X.numpy(), n_iter=2, devices=jax.devices()[:1],
+                          **kw)
+        with pytest.raises(ValueError) as et:
+            coordinator.fit_elastic(X, n_iter=2, device="cpu", **kw)
+        assert str(et.value) == str(ej.value) == "n_hosts=2 for 1 devices"
+        return
+    st = coordinator.fit_elastic(
+        X, n_iter=4, chunk_size=2, device="cpu", resilience=ResiliencePolicy(
+            checkpoint_dir=str(tmp_path)), **kw)
+    assert int(st.step) == 4
+    for s in (2, 4):
+        d = tmp_path / f"step_{s:010d}"
+        assert sorted(p.name for p in d.iterdir()) == [
+            "meta.json", "shard000-of-001-g000000.npz"]
+    assert j_verify.verify_dir(tmp_path) == 0
+    want = convert.state_to_numpy(st)
+    got, meta = j_ck.Checkpointer(tmp_path).restore(
+        JState(**{k: np.zeros_like(v) for k, v in want.items()}))
+    assert meta["generation"] == 0 and meta["step"] == 4
+    for k, v in want.items():
+        np.testing.assert_array_equal(getattr(got, k), v, err_msg=k)

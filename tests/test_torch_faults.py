@@ -1,8 +1,9 @@
 """The port's in-process fault injectors (``repro_torch.runtime.faults``):
-each fault's trigger and latch, the hooks, and the five ``--smoke``
+each fault's trigger and latch, the hooks, and the seven ``--smoke``
 scenarios on the CPU (NaN rollback, kernel fallback, preempt and resume,
-corrupt restore, index audit), with the injectors' fields and defaults
-held to the JAX package's.
+host loss on two gloo ranks, corrupt restore, index audit, a process kill
+under the supervisor), with the injectors' fields and defaults held to the
+JAX package's.
 """
 import dataclasses
 import warnings
@@ -43,7 +44,7 @@ def _state(n=40):
 
 @pytest.mark.parametrize("name", ["NaNChunk", "IndexCorruption",
                                   "CorruptShard", "KernelLaunchFault",
-                                  "Preemption"])
+                                  "Preemption", "HostLoss", "ProcessKill"])
 def test_fault_fields_equal_jax(name):
     """The same fields and defaults as the JAX injector, ``shard`` (one
     rank's replica) included."""
@@ -96,6 +97,42 @@ def test_preemption_fires_at_first_boundary_past_its_step():
         f.check(8)
     assert ei.value.step == 8
     f.check(12)
+
+
+def test_host_loss_raises_once_at_first_boundary_past_its_step():
+    f = faults.HostLoss(at_step=8, host=1)
+    f.check(4)
+    with pytest.raises(faults.HostLost) as ei:
+        f.check(9)
+    assert (ei.value.step, ei.value.host) == (9, 1)
+    f.check(12)                     # one-shot: latched
+    faults.maybe_host_loss(9)       # no script: a no-op
+    with faults.active(faults.FaultScript(faults.HostLoss(at_step=0,
+                                                          host=2))):
+        with pytest.raises(faults.HostLost, match="host 2 at step 4"):
+            faults.maybe_host_loss(4)
+
+
+def test_process_kill_sigkills_only_its_pod_past_its_chunk():
+    """In a child process: another pod's boundary and an earlier one leave
+    it alive; its own boundary past ``at_chunk`` is a SIGKILL."""
+    import os
+    import subprocess
+    import sys
+    code = ("from repro_torch.runtime import faults\n"
+            "k = faults.ProcessKill(at_chunk=8, pod=1)\n"
+            "with faults.active(faults.FaultScript(k)):\n"
+            "    faults.maybe_process_kill(12, 0)\n"
+            "    faults.maybe_process_kill(4, 1)\n"
+            "    print('alive', flush=True)\n"
+            "    faults.maybe_process_kill(8, 1)\n"
+            "print('survived', flush=True)\n")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=60,
+                       env=dict(os.environ, PYTHONPATH=src))
+    assert r.returncode == -9 and r.stdout == "alive\n", (r.returncode,
+                                                          r.stdout, r.stderr)
 
 
 @pytest.mark.parametrize("mode", ["truncate", "bitflip", "delete"])
@@ -164,8 +201,9 @@ def test_smoke_main_exit_code_and_lines(capsys):
         "[faults] nan_rollback", "[faults] preempt_resume"]
     assert all(": OK in " in line for line in out)
     assert set(faults.SCENARIOS) == {"nan_rollback", "kernel_fallback",
-                                     "preempt_resume", "corrupt_restore",
-                                     "index_audit"}
+                                     "preempt_resume", "host_loss",
+                                     "corrupt_restore", "index_audit",
+                                     "process_kill"}
 
 
 def test_smoke_main_reports_a_failing_scenario(monkeypatch, capsys):

@@ -190,11 +190,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """What is still unported raises: the CLI's multi-host options (its
-    ``--devices`` / ``--model``, fit's resilience options and the session
-    controls callback / early_stop / auto_rescale are ported and run);
-    every flag setting of the config, ``cand_fused=False`` included,
-    constructs."""
+    """What was unported runs now: fit's resilience options and the session
+    controls callback / early_stop / auto_rescale, and the CLI's multi-host
+    options (``--hosts`` runs, ``--num-processes`` alone is the reference's
+    argument error); every flag setting of the config, ``cand_fused=False``
+    included, constructs."""
     for kw in (dict(gather_fused=False), dict(scatter_fused=False),
                dict(merge_fused=False), dict(c_hd_rev=2, rev_refresh=1),
                dict(cand_fused=False), dict(c_hd_rev=2, cand_fused=False)):
@@ -209,9 +209,14 @@ def test_unported_options_raise(tmp_path):
                dict(resume_from=ckdir)):
         st, _ = tf.fit(X, cfg=cfg, n_iter=2, device="cpu", **kw)
         assert int(st.step) >= 1
-    for argv in (["--hosts", "2"], ["--num-processes", "2"]):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            t_embed.main(argv + ["--device", "cpu"])
+    # the CLI's multi-host options: --hosts alone is a one-device run (as in
+    # the reference), --num-processes without --process-id / --coordinator
+    # the reference's argument error
+    t_embed.main(["--hosts", "2", "--device", "cpu", "--dataset", "blobs",
+                  "--n", "64", "--iters", "1"])
+    with pytest.raises(SystemExit) as ei:
+        t_embed.main(["--num-processes", "2", "--device", "cpu"])
+    assert ei.value.code == 2
 
 
 def test_state_bridge_round_trip_and_checks():

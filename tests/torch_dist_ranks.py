@@ -344,3 +344,136 @@ def tail_rank(rank, world, dev, X):
     st = step(st0, grid.column_block(torch.from_numpy(X).to(dev)),
               tf.default_hparams(n, device=dev))
     return _numpy(st0), _numpy(st)
+
+
+# --------------------------------------------------------------------------
+# Host loss (tests/test_torch_host_loss.py)
+
+_JAX_HOST_LOSS_SCRIPT = """
+import json, os, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.core import funcsne
+from repro.core.resilience import ResiliencePolicy
+from repro.runtime import faults
+from repro.runtime.coordinator import fit_elastic
+
+out_dir, spec = sys.argv[1], json.loads(sys.argv[2])
+X = jnp.asarray(np.load(spec["x"]))
+n, m = X.shape
+cfg = funcsne.FuncSNEConfig(n_points=n, dim_hd=m, backend="xla")
+
+def fields(st):
+    return {k: np.asarray(jax.random.key_data(v) if k == "rng" else v)
+            for k, v in st._asdict().items()}
+
+st0 = funcsne.init_state(jax.random.PRNGKey(0), X, cfg, validate=False)
+np.savez(os.path.join(out_dir, "init.tmp.npz"), **fields(st0))
+os.replace(os.path.join(out_dir, "init.tmp.npz"),
+           os.path.join(out_dir, "init.npz"))
+# the same start on one device: the states after spec["single"] - 1 and
+# spec["single"] steps, around the sigma refresh of the last one
+step, hp = funcsne.make_step(cfg), funcsne.default_hparams(n)
+s = jax.tree.map(lambda a: jnp.array(a, copy=True), st0)
+single = {}
+for i in range(1, spec["single"] + 1):
+    s = step(s, X, hp)
+    if i >= spec["single"] - 1:
+        single.update({f"{i}/{k}": v for k, v in fields(s).items()})
+np.savez(os.path.join(out_dir, "single.npz"), **single)
+ck = os.path.join(out_dir, "ckpt")
+policy = ResiliencePolicy(checkpoint_dir=ck, checkpoint_every=1)
+with faults.active(faults.FaultScript(faults.HostLoss(
+        at_step=spec["at"], host=1))):
+    st = fit_elastic(X, cfg=cfg, n_iter=spec["n_iter"],
+                     chunk_size=spec["chunk"], n_hosts=spec["hosts"],
+                     resilience=policy, state=st0)
+np.savez(os.path.join(out_dir, "final.npz"), **fields(st))
+with open(os.path.join(out_dir, "events.json"), "w") as f:
+    json.dump(policy.events, f)
+print("OK", jax.device_count())
+"""
+
+
+def jax_host_loss_start(out_dir, X, spec):
+    """Start the JAX package's ``fit_elastic`` host-loss run (``spec``: at,
+    n_iter, chunk, hosts) on 4 fake CPU devices in a subprocess; it writes
+    ``init.npz`` (its starting state) first, then ``single.npz`` (the
+    states of a one-device ``make_step`` run from that start after
+    ``spec["single"] - 1`` and ``spec["single"]`` steps), ``final.npz``,
+    ``events.json`` and its checkpoints under ``out_dir/ckpt``.  Returns
+    the ``Popen``."""
+    x_path = os.path.join(str(out_dir), "x.npy")
+    np.save(x_path, X)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = SRC
+    return subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(_JAX_HOST_LOSS_SCRIPT),
+         str(out_dir), json.dumps(dict(spec, x=x_path))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def host_loss_rank(rank, world, dev, fields0, X, root, spec):
+    """The port's side of the host-loss parity test on ``world`` ranks:
+
+    * ``fit_elastic(n_hosts=spec["hosts"])`` from ``fields0`` under a
+      checkpointing policy, with ``HostLoss(spec["at"], host=1)``; rank 0
+      copies the checkpoint directory when the ``remesh`` event is logged
+      (the boundary the loss restored is then its newest);
+    * the fresh run: ``fit_elastic`` on the survivors' rank count from the
+      same start, resuming from that copy;
+    * a host loss with nothing committed (``checkpoint_every`` past the
+      run), which must raise ``HostLost`` on every rank.
+    Returns the final states (None on a rank outside the grid), the events
+    and whether the last run raised."""
+    import shutil
+
+    from repro_torch.core import convert
+    from repro_torch.core import funcsne as tf
+    from repro_torch.core.resilience import ResiliencePolicy
+    from repro_torch.launch.mesh import host_device_blocks
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.coordinator import fit_elastic
+
+    n, m = X.shape
+    cfg = tf.FuncSNEConfig(n_points=n, dim_hd=m)
+    Xt = torch.from_numpy(X)
+    kw = dict(cfg=cfg, n_iter=spec["n_iter"], chunk_size=spec["chunk"],
+              device=dev)
+    copy = os.path.join(root, "restored")
+
+    def copier(e):
+        if rank == 0 and e["kind"] == "remesh":
+            shutil.copytree(os.path.join(root, "run"), copy)
+    policy = ResiliencePolicy(checkpoint_dir=os.path.join(root, "run"),
+                              checkpoint_every=1, on_event=copier)
+    loss = faults.FaultScript(faults.HostLoss(at_step=spec["at"], host=1))
+    with faults.active(loss):
+        st = fit_elastic(Xt, n_hosts=spec["hosts"], resilience=policy,
+                         state=convert.state_from_numpy(fields0, cfg, dev),
+                         **kw)
+    # the same count on every rank, the lost ones included
+    survivors = world - len(host_device_blocks(range(world),
+                                               spec["hosts"])[1])
+    fresh_policy = ResiliencePolicy(checkpoint_dir=copy, checkpoint_every=1)
+    fresh = fit_elastic(Xt, devices=survivors, resilience=fresh_policy,
+                        state=convert.state_from_numpy(fields0, cfg, dev),
+                        resume_from=copy, **kw)
+    raised = None
+    with faults.active(faults.FaultScript(faults.HostLoss(at_step=4,
+                                                          host=1))):
+        try:
+            fit_elastic(Xt, n_hosts=spec["hosts"],
+                        resilience=ResiliencePolicy(
+                            checkpoint_dir=os.path.join(root, "none"),
+                            checkpoint_every=1000),
+                        state=convert.state_from_numpy(fields0, cfg, dev),
+                        **dict(kw, n_iter=8))
+        except faults.HostLost as e:
+            raised = (e.step, e.host)
+    return {"state": None if st is None else _numpy(st),
+            "events": policy.events,
+            "fresh": None if fresh is None else _numpy(fresh),
+            "fresh_events": fresh_policy.events, "raised": raised}
