@@ -201,6 +201,31 @@ them:
       launched) and printed on the [n1] / [n2] lines; they add to no row
       of the ``kernels`` line, whose rows each keep the count of their own
       path's run.
+  (o) the LM serving path and A7's examples, in a process of its own
+      (``chip_smoke.py --serve-phase PATH``; in this one the profiler
+      records no kernel after phase (l)): (o1) Gemma2-2b and (o2)
+      OLMoE-1B-7B at full width and depth (float32 params by threefry on
+      the card, bf16 compute; OLMoE at capacity factor 8, nothing drops),
+      each with ``hidden_states`` of seeded tokens through B8 with the
+      launch counters at 0 just before (the tensor-core kernel once a
+      layer, nothing else) and through the plain ``flash_chunked_ref``
+      (TOL_LATENTS), B8 held and timed at each attention shape of the path
+      (a row each: Gemma2's local window-4,096 and global layers, OLMoE's),
+      teacher-forced ``serve_step`` from ``init_cache`` held against the
+      prefill's logits (TOL_DECODE; Gemma2 every one of its 4,352
+      positions, held at the first O_FIRST and the last O_LAST, past the
+      window, with top-1 agreement at least TOP1_MIN and two planted
+      faults, a cache slot and the window mask, each read above
+      TOL_DECODE; OLMoE 256), no kernel launched by decode, decode tokens/s and
+      ms a step, the device's busy share of O_PROFILE decode steps, the
+      cache bytes and the peak memory; OLMoE's ``dropped_frac`` at the
+      default capacity factor 1.25, and ``moe_apply`` and its combine run
+      twice bit-identical (``index_add_``'s sum printed beside); (o3) A7's
+      examples at the reference's sizes (``quickstart``,
+      ``interactive_hparams`` with its kernel library builds after the first
+      phase, which must be 0, and its alpha-0.5 phase's clusters more than
+      twice any other phase's, and ``hierarchy_graph``; B3 once a step),
+      beside the numbers the JAX examples print on the CPU.
 
 B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
 2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
@@ -374,6 +399,47 @@ M_TIMEOUT = 900
 N_LOSS_AT, N_KILL_AT = 250, 250
 N_TIMEOUT = 300
 SPREAD_RANGE = (0.5, 2.0)
+# phase (o), the LM serving path and A7's examples, in a process of its own
+# (in this one the profiler records no kernel after phase (l), and the
+# earlier phases' memory is gone there): (arch, batch, prefill tokens, decode
+# steps).  Gemma2-2b: the local window 4,096 plus 256, every position
+# decoded; OLMoE-1B-7B at capacity factor 8 (the reference's decode test:
+# nothing drops), 256 positions decoded; O_LAST / O_FIRST the positions of
+# Gemma2's prefill logits that its decode is held to (the last past the
+# window, where the local layers' decode mask bites); O_PROFILE decode steps
+# under the profiler; the child's time limit in seconds
+O_GEMMA = ("gemma2-2b", 2, 4352, 4352)
+O_OLMOE = ("olmoe-1b-7b", 4, 1024, 256)
+O_LAST, O_FIRST, O_PROFILE = 256, 64, 32
+O_TIMEOUT = 600
+# decode against prefill: max |logit difference| over the largest |logit|.
+# Both run bf16 compute but round at other points (decode attention sums in
+# float32 over the bf16 cache; B8 rounds its output to bf16), and bf16
+# rounds each layer's residual stream at 2^-8 relative.  Each run plants two
+# faults in Gemma2's decode (``_planted_faults``) and holds each reading
+# above the bound: the cache read one slot off (the first O_FIRST
+# positions) and the local layers' window mask off (the last O_LAST,
+# resumed from the sound run's cache before the window bites).  On an H100
+# (700 W) at these sizes the sound decode reads 0.045 (Gemma2's first 64
+# positions), 0.048 (past the window) and 0.022 (OLMoE), the window fault
+# 0.120 and the slot fault 0.679: the bound sits 1.6x from 0.048 and from
+# 0.120 (``scripts/decode_faults_cpu.py`` gives the same order at a small
+# width on the CPU)
+TOL_DECODE = 0.075
+# Gemma2's decode against its prefill: the share of positions whose top
+# logit agrees
+TOP1_MIN = 0.99
+# the numbers the JAX package's examples print (examples/*.py, run once on
+# the CPU with JAX_PLATFORMS=cpu; PERF.md): quickstart's three qualities,
+# interactive_hparams' cluster count a phase, hierarchy_graph's counts a
+# level and its strong edges
+JAX_QUICKSTART = {"hd_knn": 0.998, "embedding": 0.265, "one_nn": 1.000}
+JAX_INTERACTIVE = (11, 4, 26, 4, 10)
+# the counts themselves are chaotic (each package's runs from Y nudged by
+# 1e-7 of itself spread over 1-11 clusters a phase: PERF.md): what is held
+# is the effect the example shows, alpha 0.5 (the third phase) giving more
+# than twice the clusters of any other phase
+JAX_HIERARCHY = ([1, 1, 16], 17)
 # exact_tsne_grad against torch.autograd's gradient of kl_loss, of max|g|:
 # the same float32 quantities summed in another order over 5,000 columns
 TOL_GRAD_REL = 1e-5
@@ -1214,10 +1280,501 @@ def resilience_phase(X, labels, cfg, hp, st_d, sps_d, recall, main_kernels,
     log(f"[l] phase (l) took {time.perf_counter() - t_l:.1f}s")
 
 
+def _o_config(name, **kw):
+    """Phase (o)'s model config: the registered one with ``kw`` replaced."""
+    from repro_torch.configs.base import get_arch
+    return dataclasses.replace(get_arch(name), **kw)
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _b8_model_row(name, call, launches, reps, tag):
+    """B8 at a model path's shape (the first call of its kind, recorded on
+    that path): held against the plain ``flash_chunked_ref``, timed with
+    CUDA events beside the plain version and, without softcap or window,
+    SDPA; returns its row of the ``kernels`` line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.attention import flash_chunked, flash_chunked_ref
+    q, k, v, kw = call
+    b, s_len, hq, d = q.shape
+    route = flash_ops.kernel_route(q.dtype, d)
+    check(route == "wgmma", f"{name}: B8 route {route}")
+    got = flash_chunked(q, k, v, **kw)
+    err = attn_close(got, flash_chunked_ref(q, k, v, **kw), name)
+    ms = time_ms(lambda: flash_chunked(q, k, v, **kw), reps)
+    plain_ms = time_ms(lambda: flash_chunked_ref(q, k, v, **kw), 2)
+    flops = 4.0 * b * hq * d * attn_pairs(s_len, kw["window"])
+    b_ms, b_by = bound(nbytes(q, k, v) + got.numel() * got.element_size(),
+                       flops, BF16_FLOPS_PER_S)
+    lib_ms = None
+    if not kw["cap"] and not kw["window"]:
+        qt, kt, vt = (t_.transpose(1, 2) for t_ in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    log(f"{tag} {name}: q {tuple(q.shape)} (B, S, H, D), {k.shape[2]} KV "
+        f"heads, softcap {kw['cap']}, window {kw['window']}: the "
+        f"tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / ms:.1%} of the bound), bound {b_ms:.4f} ms by {b_by}, "
+        f"plain {plain_ms:.3f} ms"
+        + ("" if lib_ms is None else f", SDPA {lib_ms:.4f} ms")
+        + f"; max abs err {err:.3e} against the plain version; "
+        f"{launches} launches on the path")
+    return {"name": name, "route": "cuda", "source": B8_SOURCE["wgmma"],
+            "replaces": B8_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def _decode(model, params, cache, tokens, lo, hi, keep):
+    """Teacher-forced ``serve_step`` over positions lo .. hi - 1 from
+    ``cache``; returns the logits at the positions in ``keep`` (B, len,
+    V) in float32 and the seconds it took.  Each step's ``cur_len`` is a
+    0-d slice of one device tensor: the loop makes no host sync."""
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(model)
+    lens = torch.arange(1, hi + 1, dtype=torch.int32, device=tokens.device)
+    keep, kept = set(keep), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(lo, hi):
+        lg, cache = step(params, cache, tokens[:, t:t + 1], lens[t])
+        if t in keep:
+            kept.append(lg[:, 0].float())
+    torch.cuda.synchronize()
+    return torch.stack(kept, 1), time.perf_counter() - t0
+
+
+def _vs_prefill(dec, full, scale):
+    """Decode against prefill logits: max |difference| over ``scale`` (the
+    largest |prefill logit|), relative Frobenius error, top-1 agreement."""
+    diff = dec - full
+    return (float(diff.abs().max()) / scale,
+            float(diff.norm() / full.norm()),
+            float((dec.argmax(-1) == full.argmax(-1)).float().mean()))
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _planted_faults(model, params, snap, tokens, cut, n_dec, full, scale):
+    """Two faults planted in Gemma2's decode, each held against the prefill
+    like the sound run (``full``: the prefill's logits at the first O_FIRST
+    and the last n_dec - cut positions):
+
+    * the cache read one slot off: ``decode_attention`` sees each layer's
+      K / V one slot later (position p at slot p + 1, as a write at
+      ``cur_len`` would leave it), over positions 0 .. O_FIRST - 1 from a
+      fresh cache;
+    * the window mask off: the model with ``local_window = 0`` over
+      positions cut .. n_dec - 1 from ``snap``, the sound run's cache
+      before position cut, where the window starts to bite.
+
+    Returns ``{fault: (max rel, Frobenius rel, top-1)}``."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.transformer import LMModel
+    check(full.shape[1] == O_FIRST + n_dec - cut,
+          f"prefill logits at {full.shape[1]} positions")
+    sound = attn_lib.decode_attention
+
+    def shifted(q, k_cache, v_cache, cur_len, **kw):
+        return sound(q, k_cache.roll(1, dims=1), v_cache.roll(1, dims=1),
+                     cur_len, **kw)
+    cache = model.init_cache(tokens.shape[0], n_dec, device=tokens.device)
+    attn_lib.decode_attention = shifted
+    try:
+        slot, _ = _decode(model, params, cache, tokens, 0, O_FIRST,
+                          range(O_FIRST))
+    finally:
+        attn_lib.decode_attention = sound
+    del cache
+    unwindowed = LMModel(dataclasses.replace(model.cfg, local_window=0))
+    win, _ = _decode(unwindowed, params, snap, tokens, cut, n_dec,
+                     range(cut, n_dec))
+    return {"cache slot + 1": _vs_prefill(slot, full[:, :O_FIRST], scale),
+            "window mask off": _vs_prefill(win, full[:, O_FIRST:], scale)}
+
+
+def _decode_busy(model, params, tokens, max_len):
+    """O_PROFILE decode steps from a fresh cache under the profiler (device
+    activity): device busy ms a step (kernel time), the profiled wall ms a
+    step, and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(model)
+    cache = model.init_cache(tokens.shape[0], max_len, device=tokens.device)
+    lens = torch.arange(1, O_PROFILE + 1, dtype=torch.int32,
+                        device=tokens.device)
+    step(params, cache, tokens[:, :1], lens[0])
+    torch.cuda.synchronize()
+    # device activity only: a decode step issues thousands of host ops
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(O_PROFILE):
+            step(params, cache, tokens[:, t:t + 1], lens[t])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / O_PROFILE * 1e3
+    # the trace's device events summed by name as they come: building
+    # key_averages' event tree of this many events takes seconds
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, cnt = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6 / O_PROFILE,
+                                 cnt + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    check(busy > 0, "the profiler recorded no kernel of the decode steps")
+    top = sorted(((k, ms, cnt) for k, (ms, cnt) in by_name.items()),
+                 key=lambda r: -r[1])[:6]
+    return busy, wall, top
+
+
+def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev):
+    """One model of phase (o): ``init_params`` on the card; ``hidden_states``
+    of ``batch`` x ``s_len`` seeded tokens through B8 (launch counters at 0
+    just before: B8's tensor-core kernel once a layer, nothing else) and
+    through the plain ``flash_chunked_ref``; B8 held and timed at each of
+    the path's attention shapes; teacher-forced decode of ``n_dec``
+    positions from ``init_cache(batch, n_dec)`` held against the prefill's
+    logits at the positions ``keep`` (TOL_DECODE; for Gemma2 also
+    TOP1_MIN, and the two faults of ``_planted_faults`` must exceed
+    TOL_DECODE); decode tokens/s, the busy share of O_PROFILE steps, the
+    cache bytes and the peak memory.  Returns ``(rows, model, params,
+    tokens)``."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.models.attention import flash_chunked, flash_chunked_ref
+    from repro_torch.models.transformer import LMModel
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LMModel(cfg)
+    params = model.init_params(0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_par = _tree_bytes(params) / 4
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab_size}"
+        + (f", {cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff "
+           f"{cfg.d_ff_expert}, capacity factor {cfg.capacity_factor}"
+           if cfg.is_moe else f", d_ff {cfg.d_ff}")
+        + f"; {cfg.param_dtype} params ({n_par / 1e9:.3f} B, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), "
+        f"{cfg.compute_dtype} compute; init_params(0) by threefry on the "
+        f"card in {t_init:.1f}s")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, s_len))).to(dev)
+
+    calls, counts = {}, {}
+
+    def rec(q, k, v, **kw):
+        kind = "local" if kw["window"] else "global"
+        calls.setdefault(kind, (q, k, v, kw))
+        counts[kind] = counts.get(kind, 0) + 1
+        return flash_chunked(q, k, v, **kw)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = LMModel(cfg, attention=rec).hidden_states(params, tokens)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {"flash_attention_wgmma": cfg.n_layers}
+    check(launches == {k_: want.get(k_, 0) for k_ in launches},
+          f"{cfg.name} hidden_states launches "
+          f"{ {k_: v_ for k_, v_ in launches.items() if v_} }, expected "
+          f"{want}")
+    check(sum(counts.values()) == cfg.n_layers, f"B8 calls {counts}")
+    h_p = LMModel(cfg, attention=flash_chunked_ref).hidden_states(params,
+                                                                  tokens)
+    rel_h = float((h.float() - h_p.float()).norm() / h_p.float().norm())
+    check(bool(torch.isfinite(h).all()) and rel_h <= TOL_LATENTS,
+          f"{cfg.name} hidden states, B8 vs plain: {rel_h}")
+    log(f"{tag} hidden_states of {batch} x {s_len} tokens: {t_pre:.2f}s "
+        f"({batch * s_len / t_pre:.0f} tokens/s); B8's tensor-core kernel "
+        f"launched {launches['flash_attention_wgmma']} times "
+        f"({', '.join(f'{k_} {v_}' for k_, v_ in sorted(counts.items()))}), "
+        f"nothing else; {rel_h:.3e} from the plain flash_chunked's "
+        f"(relative Frobenius, tol {TOL_LATENTS})")
+    del h_p
+    rows = [_b8_model_row(f"flash_attention_{name}" + (
+        f"_{kind}" if len(calls) > 1 else ""), call, counts[kind], 5, tag)
+        for kind, call in sorted(calls.items())]
+    del calls
+
+    idx = torch.tensor(sorted(keep), device=dev)
+    full = model._logits_fn(params)(h[:, idx]).float()
+    if cfg.final_softcap:
+        full = cfg.final_softcap * torch.tanh(full / cfg.final_softcap)
+    del h
+    cache = model.init_cache(batch, n_dec, device=dev)
+    cache_bytes = _tree_bytes(cache)
+    # Gemma2: the cache is copied before the last O_LAST positions, where
+    # the window starts to bite, for the planted window fault
+    cut = n_dec - O_LAST if cfg.local_window else n_dec
+    kernels.reset_launches()
+    dec, t_dec = _decode(model, params, cache, tokens, 0, cut, keep)
+    snap = _tree_clone(cache) if cut < n_dec else None
+    if snap is not None:
+        dec_b, t_b = _decode(model, params, cache, tokens, cut, n_dec, keep)
+        dec, t_dec = torch.cat([dec, dec_b], 1), t_dec + t_b
+        del dec_b
+    launches_dec = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+    check(not launches_dec, f"decode launched {launches_dec}")
+    check(bool(torch.isfinite(dec).all()), f"{cfg.name} decode logits")
+    del cache
+    pos = sorted(keep)
+    spans = [(f"positions {a}-{b}", [i for i, p in enumerate(pos)
+                                     if a <= p <= b])
+             for a, b in _spans(pos)]
+    scale = float(full.abs().max())
+    parts = []
+    for label, sel in spans:
+        rel, frob, top1 = _vs_prefill(dec[:, sel], full[:, sel], scale)
+        check(rel <= TOL_DECODE, f"{cfg.name} decode vs prefill at {label}: "
+              f"{rel}")
+        check(snap is None or top1 >= TOP1_MIN,
+              f"{cfg.name} decode vs prefill at {label}: top-1 {top1}")
+        parts.append(f"{label}: max rel err {rel:.3e}, Frobenius "
+                     f"{frob:.3e}, top-1 agreement {top1:.4f}")
+    del dec
+    if snap is not None:
+        faults = _planted_faults(model, params, snap, tokens, cut, n_dec,
+                                 full, scale)
+        del snap
+        log(f"{tag} planted faults against the prefill (each must exceed "
+            f"tol {TOL_DECODE}): " + "; ".join(
+                f"{k_}: max rel err {r_:.3e}, Frobenius {f_:.3e}, top-1 "
+                f"{t_:.4f}" for k_, (r_, f_, t_) in faults.items()))
+        for k_, (r_, _, _) in faults.items():
+            check(r_ > TOL_DECODE, f"{cfg.name} planted fault {k_} read "
+                  f"{r_}, within TOL_DECODE {TOL_DECODE}")
+    del full
+    ms_step = t_dec / n_dec * 1e3
+    busy, wall, top = _decode_busy(model, params, tokens, n_dec)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} teacher-forced serve_step over {n_dec} positions from "
+        f"init_cache({batch}, {n_dec}) (bf16, {cache_bytes / 1e9:.3f} GB): "
+        f"{t_dec:.2f}s, {ms_step:.3f} ms a step, {batch * n_dec / t_dec:.1f} "
+        f"tokens/s; no kernel of the port launched (decode attention is "
+        f"plain, as in the reference); against the prefill's logits "
+        f"(tol {TOL_DECODE}): " + "; ".join(parts))
+    log(f"{tag} profiler, {O_PROFILE} decode steps: device busy {busy:.3f} "
+        f"ms a step against {wall:.3f} ms of profiled wall ({busy / wall:.1%})"
+        f" and {ms_step:.3f} ms unprofiled ({busy / ms_step:.1%}); peak "
+        f"memory {peak / 1e9:.2f} GB; device time by kernel a step:")
+    for key, ms, cnt in top:
+        log(f"    {ms:9.4f} ms  {cnt / O_PROFILE:6.1f}x  {key[:90]}")
+    return rows, model, params, tokens
+
+
+def _spans(pos):
+    """Runs of consecutive positions in the sorted list ``pos``."""
+    out, a = [], pos[0]
+    for p_, q_ in zip(pos, pos[1:] + [None]):
+        if q_ != p_ + 1:
+            out.append((a, p_))
+            a = q_
+    return out
+
+
+def serve_moe_checks(model, params, tokens, tag):
+    """OLMoE's routed experts on the card: ``dropped_frac`` of the batch
+    at the default capacity factor 1.25, and ``moe_apply`` on layer 0's
+    tokens run twice, bit-identical, beside the same combine by
+    ``index_add_`` (atomics: printed, not held)."""
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import _norm
+    from repro_torch.models.common import dtype_of, matmul_cd, swiglu
+    from repro_torch.models.transformer import LMModel
+    cfg = model.cfg
+    m125 = LMModel(dataclasses.replace(cfg, capacity_factor=1.25))
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    _, _, aux = m125._run_stack(params, m125._embed_in(params, tokens),
+                                positions=pos)
+    drop = float(aux["dropped_frac"])
+    check(0.0 <= drop < 1.0, f"dropped_frac at 1.25: {drop}")
+    blk = params["blocks"][0]
+    x = _norm(blk["ln_mlp"], model._embed_in(params, tokens), cfg).reshape(
+        -1, cfg.d_model)
+    o1, _ = moe.moe_apply(blk["ffn"], x, cfg)
+    o2, _ = moe.moe_apply(blk["ffn"], x, cfg)
+    same = torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    check(same, "moe_apply twice on one input differs")
+    ms_moe = time_ms(lambda: moe.moe_apply(blk["ffn"], x, cfg), 5)
+    # the combine alone, and the same sum by index_add_
+    T, k, E = x.shape[0], cfg.moe_top_k, cfg.n_experts
+    cd = dtype_of(cfg.compute_dtype)
+    C = moe.moe_capacity(T, E, k, cfg.capacity_factor)
+    r = moe.plan(x, blk["ffn"]["router"], k, C)
+    buf = moe.dispatch(x, r["order"], r["starts"], r["counts"], k, C, cd)
+    out_e = matmul_cd(swiglu(matmul_cd(buf, blk["ffn"]["w_gate"].to(cd)),
+                             matmul_cd(buf, blk["ffn"]["w_up"].to(cd))),
+                      blk["ffn"]["w_down"].to(cd))
+    pos_tk = torch.empty_like(r["pos"])
+    pos_tk[r["order"]] = r["pos"]
+    pos_tk = pos_tk.view(T, k)
+
+    def comb():
+        return moe.combine(out_e, r["top_e"], r["top_p"], pos_tk, cd)
+    c1, c2 = comb(), comb()
+    check(torch.equal(c1.view(torch.int16), c2.view(torch.int16)),
+          "the combine twice on one input differs")
+    se = r["top_e"].reshape(-1)[r["order"]]
+    contrib = out_e[se, r["pos"].clamp(0, C - 1)] * (
+        r["top_p"].reshape(-1)[r["order"]] * r["keep"]).to(cd)[:, None]
+    tok = r["order"] // k
+
+    def lib():
+        return torch.zeros((T, cfg.d_model), dtype=cd,
+                           device=x.device).index_add_(0, tok, contrib)
+    l1, l2 = lib(), lib()
+    ms_comb, ms_lib = time_ms(comb, 10), time_ms(lib, 10)
+    log(f"{tag} dropped_frac of the {tokens.shape[0]} x {tokens.shape[1]} "
+        f"batch at capacity factor 1.25: {drop:.4f} (mean over layers); "
+        f"moe_apply on layer 0's {T} tokens twice: bit-identical, "
+        f"{ms_moe:.3f} ms a call; the combine (ascending expert id, {k} adds "
+        f"in bf16) twice bit-identical, {ms_comb:.4f} ms; index_add_ of the "
+        f"same contributions {ms_lib:.4f} ms, its two runs "
+        f"{'bit-identical' if torch.equal(l1, l2) else 'differ'}, "
+        f"{float((l1.float() - c1.float()).abs().max()):.3e} from the "
+        f"combine at most")
+
+
+def serve_examples(dev):
+    """A7's examples at the reference's sizes on the card, each with the
+    launch counters at 0 just before (B3 once a step), beside the numbers
+    the JAX examples print on the CPU."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.examples import (hierarchy_graph, interactive_hparams,
+                                      quickstart)
+
+    def sub(msg):
+        for line in str(msg).splitlines():
+            log(f"    {line}")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            q = quickstart.run(log=sub, device=dev)
+            t_q = time.perf_counter() - t0
+            wrote = os.path.exists(quickstart.OUT)
+        finally:
+            os.chdir(cwd)
+    b3 = kernels.LAUNCHES["ne_forces_scatter"]
+    check(wrote and b3 == 750, f"quickstart: wrote {wrote}, B3 {b3}")
+    check(q["hd_knn"] > 0.9 and q["one_nn"] > 0.9 and q["embedding"] > 0.1,
+          f"quickstart qualities {q}")
+    log(f"[o3] quickstart: {t_q:.1f}s (fit of 750 steps, B3 launched {b3} "
+        f"times); HD KNN {q['hd_knn']:.3f}, embedding {q['embedding']:.3f}, "
+        f"1-NN {q['one_nn']:.3f}; the JAX example on the CPU: "
+        + ", ".join(f"{v:.3f}" for v in JAX_QUICKSTART.values()))
+
+    kernels.reset_launches()
+    _, report, builds = interactive_hparams.run(log=sub, device=dev)
+    b3 = kernels.LAUNCHES["ne_forces_scatter"]
+    steps = sum(interactive_hparams.ITERS)
+    check(builds == 0 and b3 == steps,
+          f"interactive_hparams: builds {builds}, B3 {b3}")
+    clusters = [r["clusters"] for r in report]
+    check(clusters[2] > 2 * max(clusters[:2] + clusters[3:]),
+          f"interactive_hparams: clusters {clusters}, alpha 0.5 does not "
+          f"fragment them")
+    log(f"[o3] interactive_hparams: " + ", ".join(
+        f"{r['it_s']:.0f} it/s {r['clusters']} clusters" for r in report)
+        + f"; kernel library builds after phase 1: {builds}; B3 launched "
+        f"{b3} times; the JAX example's clusters on the CPU: "
+        f"{list(JAX_INTERACTIVE)}")
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    graph, counts, strong = hierarchy_graph.run(log=sub, device=dev)
+    t_h = time.perf_counter() - t0
+    b3 = kernels.LAUNCHES["ne_forces_scatter"]
+    check(b3 == 1200 and len(counts) == 3 and min(counts) >= 1,
+          f"hierarchy_graph: counts {counts}, B3 {b3}")
+    log(f"[o3] hierarchy_graph: {t_h:.1f}s, cluster counts {counts}, "
+        f"{len(strong)} strong edges; B3 launched {b3} times; the JAX "
+        f"example on the CPU: {JAX_HIERARCHY[0]}, {JAX_HIERARCHY[1]} strong "
+        f"edges")
+
+
+def serve_main(path):
+    """Phase (o), run as ``chip_smoke.py --serve-phase PATH`` by
+    :func:`serve_phase`: (o1) Gemma2-2b and (o2) OLMoE-1B-7B through
+    ``serve_model``, OLMoE's routed experts (``serve_moe_checks``), (o3)
+    A7's examples; writes the B8 rows as JSON to ``path``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_o = time.perf_counter()
+    log(f"[o] {torch.cuda.get_device_name(0)} ({card_line()}), a process of "
+        f"its own")
+    arch, b, s_len, n_dec = O_GEMMA
+    rows, model, params, tokens = serve_model(
+        "gemma2", _o_config(arch), b, s_len, n_dec,
+        list(range(O_FIRST)) + list(range(n_dec - O_LAST, n_dec)), "[o1]",
+        dev)
+    del model, params, tokens
+    torch.cuda.empty_cache()
+    arch, b, s_len, n_dec = O_OLMOE
+    rows_m, model, params, tokens = serve_model(
+        "olmoe", _o_config(arch, capacity_factor=8.0), b, s_len, n_dec,
+        list(range(n_dec)), "[o2]", dev)
+    rows += rows_m
+    serve_moe_checks(model, params, tokens, "[o2]")
+    del model, params, tokens
+    torch.cuda.empty_cache()
+    serve_examples(dev)
+    log(f"[o] phase (o) took {time.perf_counter() - t_o:.1f}s in its process")
+    with open(path, "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def serve_phase():
+    """Phase (o) in a child process (see ``serve_main``); returns its rows
+    of the ``kernels`` line."""
+    import tempfile
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "rows.json")
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--serve-phase", path], timeout=O_TIMEOUT)
+        check(res.returncode == 0, f"phase (o) exited with {res.returncode}")
+        with open(path) as f:
+            rows = json.load(f)
+    log(f"[o] phase (o) took {time.perf_counter() - t0:.1f}s with its "
+        f"process's start")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-phase":
+        return serve_main(sys.argv[2])
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import kernels
@@ -3542,6 +4099,9 @@ def main():
     # ---- (n) the elastic runtime across hosts -------------------------------
     elastic_phase(X, rows, sub, true_idx, rec1, auc,
                   m_quality["(2,1) run 1"], expected, card)
+
+    # ---- (o) the LM serving path and A7's examples -------------------------
+    out.extend(serve_phase())
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 

@@ -63,27 +63,52 @@ def state_to_numpy(st: FuncSNEState) -> dict:
     return out
 
 
+def _torch_tree(x, dev, index=None):
+    """A nested dict of numpy arrays (or one array) as torch tensors on
+    ``dev``, each leaf's row ``index`` if given; ml_dtypes' bfloat16
+    becomes torch bfloat16, every other dtype stays as it is."""
+    if isinstance(x, Mapping):
+        return {k: _torch_tree(v, dev, index) for k, v in x.items()}
+    a = np.asarray(x)
+    a = np.array(a if index is None else a[index])
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(a).to(dev)
+
+
+def _n_stacked(tree) -> int:
+    """The leading (layer) dim of the first leaf of a stacked tree."""
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return len(np.asarray(tree))
+
+
+def _unstacked(tree, stacked_key: str, dev) -> dict:
+    out = {k: _torch_tree(v, dev) for k, v in tree.items()
+           if k != stacked_key}
+    blocks = tree[stacked_key]
+    out[stacked_key] = [_torch_tree(blocks, dev, i)
+                        for i in range(_n_stacked(blocks))]
+    return out
+
+
 def lm_params_from_jax(params_np, device="cuda") -> dict:
     """The port's LM parameters from JAX ``LMModel.init_params`` output
     given as numpy (e.g. ``jax.tree.map(np.asarray, params)``).
 
     JAX stacks the layers: each leaf of ``params["blocks"]`` has a leading
-    L dim.  The port keeps a list of per-layer dicts of the same keys;
-    every other entry (``embed``, ``final_norm``, ``lm_head``) is copied.
+    L dim (a Gemma2 pair's ``local`` / ``global`` dicts and a MoE block's
+    ``ffn`` dict included).  The port keeps a list of per-layer dicts of
+    the same nested keys; every other entry (``embed``, ``final_norm``,
+    ``lm_head``, a dense ``first`` layer) is copied.  Each leaf keeps its
+    dtype (the MoE router stays float32).
     """
-    dev = resolve_device(device)
+    return _unstacked(params_np, "blocks", resolve_device(device))
 
-    def tree(x, index=None):
-        if isinstance(x, Mapping):
-            return {k: tree(v, index) for k, v in x.items()}
-        a = np.asarray(x)
-        a = np.array(a if index is None else a[index])
-        if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16
-            return torch.from_numpy(a.astype(np.float32)).to(
-                dev, torch.bfloat16)
-        return torch.from_numpy(a).to(dev)
-    out = {k: tree(v) for k, v in params_np.items() if k != "blocks"}
-    blocks = params_np["blocks"]
-    n_layers = len(np.asarray(blocks["ln_attn"]))
-    out["blocks"] = [tree(blocks, i) for i in range(n_layers)]
-    return out
+
+def lm_cache_from_jax(cache_np, device="cuda") -> dict:
+    """The port's KV cache (``LMModel.init_cache``'s layout: a list of
+    per-layer dicts under ``blocks``) from a JAX ``init_cache`` /
+    ``serve_step`` cache given as numpy, whose ``blocks`` leaves are
+    stacked over the layers."""
+    return _unstacked(cache_np, "blocks", resolve_device(device))

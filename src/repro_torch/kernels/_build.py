@@ -27,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+# how many times this process compiled the kernel library (each build runs
+# nvcc on every source); a checkout whose library exists builds 0 times
+BUILDS = 0
 
 
 def _nvcc() -> str:
@@ -58,6 +61,8 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    global BUILDS
+    BUILDS += 1
     work = Path(tempfile.mkdtemp(prefix=f"{tag}-", dir=BUILD_DIR))
     try:
         srcs = sorted(CSRC.glob("*.cu"))

@@ -1,6 +1,5 @@
-"""Causal GQA attention for the prefill/forward path (port of
-``repro.models.attention``: ``flash_chunked``, ``init_gqa``,
-``gqa_apply`` without a cache).
+"""Causal GQA attention (port of ``repro.models.attention``:
+``flash_chunked``, ``decode_attention``, ``init_gqa``, ``gqa_apply``).
 
 ``flash_chunked`` takes the model's (B, S, H, D) layout.  On a CUDA tensor
 it launches B8 (``kernels.flash_attention``: the tensor-core kernel for
@@ -10,8 +9,14 @@ with no transpose copy; on a CPU tensor it runs
 ``flash_chunked_ref``, the plain online softmax over KV chunks of the JAX
 function, which also runs on the card as B8's plain version.
 
-Not ported yet (ROADMAP A8): ``decode_attention`` and the decode branch of
-``gqa_apply`` (the KV cache), MLA (``init_mla``, ``mla_apply``).
+Decode (``gqa_apply`` with a cache) writes the new token's K and V into
+the cache at ``cur_len - 1`` in place and attends over the cache with
+``decode_attention``, plain PyTorch as in the JAX package (an einsum over
+the cache, no Pallas kernel there).  ``cur_len`` is a 0-d integer tensor on
+the model's device: the write index, RoPE's position and the masks are
+tensors, so a step makes no host sync.
+
+Not ported yet (ROADMAP A8): MLA (``init_mla``, ``mla_apply``).
 """
 from __future__ import annotations
 
@@ -108,6 +113,31 @@ def flash_chunked(q, k, v, *, chunk_q: int = 0, chunk_k: int = 512,
     return out
 
 
+def decode_attention(q, k_cache, v_cache, cur_len, *, scale: float,
+                     cap: float = 0.0, window: int = 0):
+    """One-token attention over a (B, Smax, Hkv, D) cache.
+
+    q: (B, 1, Hq, D); cur_len: current length *including* the new token (a
+    0-d tensor, or (B, 1) for one length a row).  Scores, softmax and sum in
+    float32, softcap before the mask; returns (B, 1, Hq, D) in q's dtype.
+    """
+    B, Smax, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    group = Hq // Hkv
+    qg = q.reshape(B, Hkv, group, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    pos = torch.arange(Smax, device=q.device)[None, :]
+    mask = pos < cur_len
+    if window:
+        mask &= pos > cur_len - 1 - window
+    s = torch.where(mask[:, None, None, :], s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
 # GQA attention layer
 
@@ -139,11 +169,16 @@ def _proj(h, w, cd):
 
 def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
               cur_len=None, attention=flash_chunked):
-    """h: (B, S, D) -> ((B, S, D), None): prefill attention.  ``attention``
-    is ``flash_chunked`` (B8 on the card) or ``flash_chunked_ref``."""
-    if cache is not None or cur_len is not None:
-        raise NotImplementedError("decode attention (the KV cache) is not "
-                                  "ported yet")
+    """h: (B, S, D) -> ((B, S, D), new_cache).
+
+    Without a cache: prefill attention through ``attention``
+    (``flash_chunked``, B8 on the card, or ``flash_chunked_ref``); the
+    cache returned is None.  With ``cache`` (dict ``k``, ``v`` of shape
+    (B, Smax, Hkv, Dh)) and ``cur_len``: one decode token (S = 1), written
+    into the cache in place at ``cur_len - 1`` clamped to [0, Smax - 1] (as
+    ``dynamic_update_slice`` clamps), then ``decode_attention``; the cache
+    dict is returned.
+    """
     B, S, D = h.shape
     Dh = cfg.resolved_head_dim
     cd = dtype_of(cfg.compute_dtype)
@@ -156,11 +191,24 @@ def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
     if positions is None:
-        positions = torch.arange(S, device=h.device)[None, :]
+        positions = torch.arange(S, device=h.device)[None, :] \
+            if cur_len is None else (cur_len - 1) * torch.ones(
+                (B, 1), dtype=torch.int32, device=h.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = attention(q, k, v, chunk_k=min(cfg.attn_chunk_k, S),
-                    scale=Dh ** -0.5, cap=cfg.attn_softcap, window=window)
+    scale = Dh ** -0.5
+
+    if cache is None:
+        out = attention(q, k, v, chunk_k=min(cfg.attn_chunk_k, S),
+                        scale=scale, cap=cfg.attn_softcap, window=window)
+    else:
+        smax = cache["k"].shape[1]
+        idx = (cur_len - 1).reshape(1).clamp(0, smax - 1).long()
+        cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        out = decode_attention(q, cache["k"], cache["v"], cur_len,
+                               scale=scale, cap=cfg.attn_softcap,
+                               window=window)
     wo = p["wo"].to(cd)
     out = matmul_cd(out.to(cd).reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
-    return out, None
+    return out, cache

@@ -1,10 +1,13 @@
-"""The dense transformer block (port of the dense family of
-``repro.models.blocks``: ``init_mlp``, ``mlp_apply``, ``_norm``,
-``init_dense_block``, ``dense_block_apply``).
+"""Transformer blocks (port of ``repro.models.blocks``: the dense GQA
+block, the Gemma2 pair and the MoE block with GQA attention).
 
 A block apply returns ``(h_new, new_cache, aux)`` as in the JAX package;
-``aux`` carries MoE router losses, zeros here.  The gemma2 pair, MoE,
-Mamba2 and Zamba2 blocks are not ported yet (ROADMAP A8).
+``aux`` carries the MoE router losses (0-d float32 tensors), and the
+dense and Gemma2 blocks return ``ZERO_AUX``'s zeros as Python floats.
+With a cache (one decode token) ``new_cache`` is the cache written in
+place; without one it is None.  Parameters are one dict per layer (the
+JAX package stacks them).  MLA (DeepSeek-V2), the Mamba2 block and
+Zamba2's super-block are not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 
 from repro_torch.core import threefry
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (dense_init, dtype_of, gelu, matmul_cd,
                                        rms_norm, swiglu)
 
@@ -59,3 +63,85 @@ def dense_block_apply(p, h, cfg, *, positions=None, cache=None, cur_len=None,
     h = h + a
     h = h + mlp_apply(p["mlp"], _norm(p["ln_mlp"], h, cfg), cfg)
     return h, new_cache, dict(ZERO_AUX)
+
+
+# --------------------------------------------------------------------------
+# Gemma2 pair (local sliding-window layer + global layer, sandwich norms)
+
+
+def init_gemma_pair(key, cfg, *, device=None):
+    ks = threefry.split(key, 2)
+    dt = dtype_of(cfg.param_dtype)
+    z = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+
+    def sub(k):
+        k1, k2 = threefry.split(k, 2)
+        return {"attn": attn_lib.init_gqa(k1, cfg, device=device),
+                "mlp": init_mlp(k2, cfg, device=device),
+                "ln_attn_pre": z + 0.0, "ln_attn_post": z + 0.0,
+                "ln_mlp_pre": z + 0.0, "ln_mlp_post": z + 0.0}
+
+    return {"local": sub(ks[0]), "global": sub(ks[1])}
+
+
+def _gemma_sub_apply(p, h, cfg, *, window, positions, cache, cur_len,
+                     attention):
+    a, new_cache = attn_lib.gqa_apply(
+        p["attn"], _norm(p["ln_attn_pre"], h, cfg), cfg, window=window,
+        positions=positions, cache=cache, cur_len=cur_len,
+        attention=attention)
+    h = h + _norm(p["ln_attn_post"], a, cfg)
+    m = mlp_apply(p["mlp"], _norm(p["ln_mlp_pre"], h, cfg), cfg)
+    h = h + _norm(p["ln_mlp_post"], m, cfg)
+    return h, new_cache
+
+
+def gemma_pair_apply(p, h, cfg, *, positions=None, cache=None, cur_len=None,
+                     window: int = 0, attention=attn_lib.flash_chunked):
+    """The local layer at ``cfg.local_window``, then the global layer at
+    window 0 (``window`` is ignored, as in the JAX package)."""
+    del window
+    h, _ = _gemma_sub_apply(
+        p["local"], h, cfg, window=cfg.local_window, positions=positions,
+        cache=None if cache is None else cache["local"], cur_len=cur_len,
+        attention=attention)
+    h, _ = _gemma_sub_apply(
+        p["global"], h, cfg, window=0, positions=positions,
+        cache=None if cache is None else cache["global"], cur_len=cur_len,
+        attention=attention)
+    return h, cache, dict(ZERO_AUX)
+
+
+# --------------------------------------------------------------------------
+# MoE block (OLMoE: GQA + routed experts)
+
+
+def init_moe_block(key, cfg, *, dense_ffn: bool = False, device=None):
+    if cfg.is_mla:
+        raise NotImplementedError(f"MLA attention ({cfg.name}) is not "
+                                  "ported yet")
+    ks = threefry.split(key, 2)
+    dt = dtype_of(cfg.param_dtype)
+    z = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+    ffn = (init_mlp(ks[1], cfg, device=device) if dense_ffn
+           else moe_lib.init_moe(ks[1], cfg, device=device))
+    return {"attn": attn_lib.init_gqa(ks[0], cfg, device=device),
+            "ffn": ffn, "ln_attn": z + 1.0, "ln_mlp": z + 1.0}
+
+
+def moe_block_apply(p, h, cfg, *, positions=None, cache=None, cur_len=None,
+                    window: int = 0, dense_ffn: bool = False,
+                    attention=attn_lib.flash_chunked):
+    B, S, D = h.shape
+    a, new_cache = attn_lib.gqa_apply(
+        p["attn"], _norm(p["ln_attn"], h, cfg), cfg, window=window,
+        positions=positions, cache=cache, cur_len=cur_len,
+        attention=attention)
+    h = h + a
+    x = _norm(p["ln_mlp"], h, cfg)
+    if dense_ffn:
+        out, aux = mlp_apply(p["ffn"], x, cfg), dict(ZERO_AUX)
+    else:
+        out, aux = moe_lib.moe_apply(p["ffn"], x.reshape(B * S, D), cfg)
+        out = out.reshape(B, S, D)
+    return h + out, new_cache, aux

@@ -16,6 +16,7 @@ one device (no sharding constraints) and only the forward pass.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -79,9 +80,19 @@ def softcap(x, cap: float):
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
-    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                             device=device) / head_dim
-    return 1.0 / (theta ** exponents)                 # (head_dim/2,)
+    """The (head_dim / 2,) inverse frequencies, one table a (head_dim,
+    theta, device) made once: every layer of a decode step asks for it, and
+    building it is four launches each time."""
+    return _rope_freqs(head_dim, float(theta), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_freqs(head_dim: int, theta: float, device: torch.device):
+    # a normal tensor, even when first asked for inside inference mode
+    with torch.inference_mode(False):
+        exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                 device=device) / head_dim
+        return 1.0 / (theta ** exponents)
 
 
 def apply_rope(x, positions, theta: float = 10000.0):

@@ -1,17 +1,29 @@
-"""LMModel for the dense/vlm/audio families (port of
-``repro.models.transformer``): embedding, the layer stack and the final
-norm -- what ``hidden_states`` runs.
+"""LMModel (port of ``repro.models.transformer``): embedding, the layer
+stack, the final norm and the head -- ``hidden_states`` and the serving
+path (``init_cache``, ``serve_step``) -- for these families:
+
+  dense / vlm / audio : dense GQA blocks
+  gemma2              : (local, global) pairs, sandwich norms
+  moe                 : MoE blocks with GQA attention (OLMoE), with an
+                        optional dense first layer
 
 The JAX model stacks its layers (a leading L dim) and applies them with
-``lax.scan``; the port keeps one parameter dict per layer and runs them in
-a Python loop.  ``init_params`` draws what JAX's ``init_params(key)``
-draws: ``split(key, 8)``, then one key per layer from ``split(ks[1], L)``
-(JAX's ``vmap`` over those keys draws the same numbers per key), each
-tensor drawn on its own so no stacked temporaries exist.
+``lax.scan``; the port keeps one parameter dict per layer, and one cache
+dict per layer, and runs them in a Python loop.  ``init_params`` draws
+what JAX's ``init_params(key)`` draws: ``split(key, 8)``, then one key per
+layer from ``split(ks[1], L)`` (JAX's ``vmap`` over those keys draws the
+same numbers per key), each tensor drawn on its own so no stacked
+temporaries exist.
 
-Not ported yet (ROADMAP A8): the gemma2, moe, ssm and hybrid families,
-the loss (``loss_and_aux``), decode (``init_cache``, ``serve_step``),
-rematerialisation and the sharding plumbing.
+``serve_step`` writes the new token into the cache in place and returns
+that cache (the JAX step returns a new one); its ``cur_len`` is a 0-d
+integer tensor on the model's device, and nothing in the step reads a
+device value on the host.
+
+Not ported yet (ROADMAP A8): MLA (DeepSeek-V2), the ssm and hybrid
+families (Mamba2, Zamba2), the loss (``loss_and_aux``),
+rematerialisation and the sharding plumbing (``param_specs``,
+``cache_specs``).
 """
 from __future__ import annotations
 
@@ -24,9 +36,10 @@ from repro_torch.core import threefry
 from repro_torch.core.funcsne import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import flash_chunked
-from repro_torch.models.common import dtype_of, embed_init, rms_norm
+from repro_torch.models.common import (dtype_of, embed_init, matmul_cd,
+                                       rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "vlm", "audio", "gemma2", "moe")
 
 
 class LMModel:
@@ -34,13 +47,35 @@ class LMModel:
         """``attention``: ``flash_chunked`` (B8 on the card, the plain
         version on the CPU) or ``models.attention.flash_chunked_ref`` (the
         plain version on either device)."""
-        if cfg.family not in PORTED_FAMILIES:
+        fam = cfg.family
+        if fam not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"the {cfg.family!r} family ({cfg.name}) is not ported yet; "
+                f"the {fam!r} family ({cfg.name}) is not ported yet; "
                 f"the port runs {PORTED_FAMILIES}")
+        if cfg.is_mla:
+            raise NotImplementedError(
+                f"MLA attention ({cfg.name}, the {fam!r} family) is not "
+                "ported yet")
         self.cfg = cfg
         self.attention = attention
-        self.n_stack = cfg.n_layers
+        if fam == "gemma2":
+            assert cfg.n_layers % 2 == 0
+            self.n_stack = cfg.n_layers // 2
+            self._init_block = B.init_gemma_pair
+            self._apply_block = B.gemma_pair_apply
+        elif fam == "moe":
+            self.n_stack = cfg.n_layers - (1 if cfg.moe_dense_first else 0)
+            self._init_block = B.init_moe_block
+            self._apply_block = B.moe_block_apply
+        else:                             # dense / vlm / audio
+            self.n_stack = cfg.n_layers
+            self._init_block = B.init_dense_block
+            self._apply_block = B.dense_block_apply
+        cd = dtype_of(cfg.compute_dtype)
+        # sqrt(d_model) rounded to the compute dtype, as the JAX model's
+        # jnp.asarray(d ** 0.5, cd): a product of it and a value of that
+        # dtype rounds once either way
+        self._embed_scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=cd))
 
     # ------------------------------------------------------------------
     # Parameters
@@ -58,8 +93,11 @@ class LMModel:
             p["embed"] = embed_init(ks[0], (cfg.vocab_size, cfg.d_model), dt,
                                     device=dev)
         layer_keys = threefry.split(ks[1], self.n_stack)
-        p["blocks"] = [B.init_dense_block(layer_keys[i], cfg, device=dev)
+        p["blocks"] = [self._init_block(layer_keys[i], cfg, device=dev)
                        for i in range(self.n_stack)]
+        if cfg.family == "moe" and cfg.moe_dense_first:
+            p["first"] = B.init_moe_block(ks[3], cfg, dense_ffn=True,
+                                          device=dev)
         p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt, device=dev) \
             + (0.0 if cfg.norm_plus_one else 1.0)
         if not cfg.tie_embeddings or cfg.input_mode == "embeds":
@@ -78,19 +116,97 @@ class LMModel:
         else:
             h = inputs.to(cd)
         if cfg.scale_embeddings:
-            h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cd, device=h.device)
+            h = h * self._embed_scale
         return h
 
-    def _run_stack(self, p, h, *, positions=None):
-        for bp in p["blocks"]:
-            h, _, _ = B.dense_block_apply(bp, h, self.cfg, positions=positions,
-                                          attention=self.attention)
-        return h
+    def _logits_fn(self, p):
+        """h -> h @ head in the compute dtype; the head is the tied
+        embedding's transpose where the config ties it."""
+        cfg = self.cfg
+        cd = dtype_of(cfg.compute_dtype)
+        head = (p["embed"].T if (cfg.tie_embeddings
+                                 and cfg.input_mode == "tokens"
+                                 and "lm_head" not in p)
+                else p["lm_head"])
+        return lambda h: matmul_cd(h.to(cd), head.to(cd))
+
+    def _run_stack(self, p, h, *, positions=None, cache=None, cur_len=None):
+        """The layers (and a dense first layer), with or without a cache.
+        Returns ``(h, cache, aux)``: the cache written in place (None
+        without one); ``aux`` each router loss's mean over the stacked
+        layers, 0-d float32 tensors."""
+        cfg = self.cfg
+        decode = cache is not None
+        if cfg.family == "moe" and cfg.moe_dense_first:
+            h, _, _ = B.moe_block_apply(
+                p["first"], h, cfg, positions=positions,
+                cache=cache["first"] if decode else None, cur_len=cur_len,
+                dense_ffn=True, attention=self.attention)
+        auxs = []
+        for i, bp in enumerate(p["blocks"]):
+            h, _, aux = self._apply_block(
+                bp, h, cfg, positions=positions,
+                cache=cache["blocks"][i] if decode else None,
+                cur_len=cur_len, attention=self.attention)
+            auxs.append(aux)
+        out_aux = {}
+        for name in B.ZERO_AUX:
+            vals = [a[name] for a in auxs]
+            if all(torch.is_tensor(v) for v in vals):
+                out_aux[name] = torch.stack(vals).mean()
+            else:                         # the dense and Gemma2 blocks
+                out_aux[name] = torch.zeros((), dtype=torch.float32,
+                                            device=h.device)
+        return h, cache, out_aux
 
     def hidden_states(self, p, inputs):
         """Final (pre-head) hidden states -- used by embed_latents."""
         h = self._embed_in(p, inputs)
         S = h.shape[1]
         positions = torch.arange(S, device=h.device)[None, :]
-        h = self._run_stack(p, h, positions=positions)
+        h, _, _ = self._run_stack(p, h, positions=positions)
         return rms_norm(h, p["final_norm"], plus_one=self.cfg.norm_plus_one)
+
+    # ------------------------------------------------------------------
+    # Serving
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
+                   device="cuda"):
+        """Zero KV caches: ``{"blocks": [per-layer cache], "first": ...}``,
+        each layer's ``{"k", "v"}`` of shape (batch, max_len, Hkv, Dh)
+        (a Gemma2 pair's ``{"local": ..., "global": ...}``)."""
+        dev = resolve_device(device)
+        cfg = self.cfg
+
+        def kv():
+            shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+        if cfg.family == "gemma2":
+            blocks = [{"local": kv(), "global": kv()}
+                      for _ in range(self.n_stack)]
+        else:
+            blocks = [kv() for _ in range(self.n_stack)]
+        cache = {"blocks": blocks}
+        if cfg.family == "moe" and cfg.moe_dense_first:
+            cache["first"] = kv()
+        return cache
+
+    @torch.inference_mode()
+    def serve_step(self, p, cache, inputs, cur_len):
+        """One decode step.  inputs: (B, 1) tokens or (B, 1, D) embeds;
+        cur_len: 0-d integer tensor, the length including the new token.
+        Returns ``(logits (B, 1, V), cache)``: logits in the compute dtype,
+        or in float32 after the final softcap; the cache written in place.
+        Forward only, as the JAX step: it runs in inference mode, which
+        spares each of a step's thousands of small ops the autograd
+        bookkeeping."""
+        h = self._embed_in(p, inputs)
+        h, cache, _ = self._run_stack(p, h, cache=cache, cur_len=cur_len)
+        h = rms_norm(h, p["final_norm"], plus_one=self.cfg.norm_plus_one)
+        logits = self._logits_fn(p)(h)
+        cap = self.cfg.final_softcap
+        if cap:
+            logits = cap * torch.tanh(logits.float() / cap)
+        return logits, cache

@@ -174,12 +174,17 @@ def test_primitives_match_jax():
 
 
 def test_unported_families_raise():
-    for name in ("gemma2-2b", "olmoe-1b-7b", "mamba2-130m", "zamba2-2.7b"):
+    """What is still to port raises on construction: the ssm and hybrid
+    families by name, DeepSeek-V2 (a moe config) naming MLA.  Gemma2 and
+    OLMoE build; their serving path is held in test_torch_decode.py."""
+    for name in ("mamba2-130m", "zamba2-2.7b"):
         cfg = smoke_variant(get_arch(name))
         with pytest.raises(NotImplementedError, match=cfg.family):
             LMModel(cfg)
-    with pytest.raises(NotImplementedError, match="decode"):
-        t_attn.gqa_apply({}, torch.zeros(1, 2, 4), None, cache={})
+    with pytest.raises(NotImplementedError, match="MLA"):
+        LMModel(smoke_variant(get_arch("deepseek-v2-236b")))
+    for name in ("gemma2-2b", "olmoe-1b-7b"):
+        assert LMModel(smoke_variant(get_arch(name))).cfg.name.startswith(name)
 
 
 def test_one_shot_prototypes_match_jax():
