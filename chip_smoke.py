@@ -203,9 +203,10 @@ them:
       path's run.
   (o) the LM serving path and A7's examples, in a process of its own
       (``chip_smoke.py --serve-phase PATH``; in this one the profiler
-      records no kernel after phase (l)): (o1) Gemma2-2b and (o2)
-      OLMoE-1B-7B at full width and depth (float32 params by threefry on
-      the card, bf16 compute; OLMoE at capacity factor 8, nothing drops),
+      records no kernel after phase (l)): (o1) Gemma2-2b at full width and
+      O_GEMMA_LAYERS of its 26 layers and (o2) OLMoE-1B-7B at full width
+      and depth (float32 params by threefry on the card, bf16 compute;
+      OLMoE at capacity factor 8, nothing drops),
       each with ``hidden_states`` of seeded tokens through B8 with the
       launch counters at 0 just before (the tensor-core kernel once a
       layer, nothing else) and through the plain ``flash_chunked_ref``
@@ -226,6 +227,24 @@ them:
       phase, which must be 0, and its alpha-0.5 phase's clusters more than
       twice any other phase's, and ``hierarchy_graph``; B3 once a step),
       beside the numbers the JAX examples print on the CPU.
+  (p) serving for the last three LM families, in a process of its own as
+      phase (o) (``chip_smoke.py --serve-phase-p PATH``): (p1)
+      DeepSeek-V2 at full width and 4 of its 60 layers (MLA, 160 routed
+      experts top-6 and 2 shared, bf16 params, capacity factor 8), (p2)
+      Mamba2-130m and (p3) Zamba2-2.7b at full width and depth, each
+      through ``serve_model`` as in phase (o): ``hidden_states`` with the
+      launch counters at 0 just before (B8 once a layer on the tensor-core
+      kernel at D 192, Dv 128 for DeepSeek; none for Mamba2; once a
+      super-block on the SIMT kernel at D 80 for Zamba2), B8 held and
+      timed on the path (DeepSeek's SIMT kernel timed beside), decode of
+      every position held against the prefill (TOL_DECODE; Mamba2 and
+      Zamba2 TOL_DECODE_SSM, and Zamba2's hidden states through B8
+      against the plain version TOL_LATENTS_SSM) with one planted fault
+      each read above it (the MLA latent pair a slot late; the SSM state
+      not decayed), decode ms a step and tokens/s, the busy share, cache
+      bytes and peak memory; Mamba2's chunk scan against its recurrence on
+      layer 0's inputs (TOL_SSD), and its decode against its prefill in
+      float32 compute (TOL_DECODE_F32).
 
 B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
 2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
@@ -335,25 +354,33 @@ ATTN_CASES = (
      5),
     ("flash_attention_fp32", 4, 32, 32, 1500, 64, torch.float32, 0.0, 0, 20),
 )
-# (name, B, Hq, Hkv, S, D, dtype, softcap, window, layout) of phase (h),
-# checked only, through the routed call: S that fills no tile, and the
-# model's (B, S, H, D) layout through strides, at each D of the two
-# tensor-core kernels; and one float32 case at D 96, which routes to the
+# (name, B, Hq, Hkv, S, D, Dv, dtype, softcap, window, layout) of phase
+# (h), checked only, through the routed call: S that fills no tile, and the
+# model's (B, S, H, D) layout through strides, at each width of the two
+# tensor-core kernels, DeepSeek-V2's MLA pair (D 192, Dv 128) among them;
+# one float32 case at D 96 and MLA's pair in float32, which route to the
 # SIMT kernel.  At D = 256 (bf16) and D = 64 (float32) a CTA holds 128
 # query rows, and S = 1,050 leaves the last CTA's second warpgroup no row
 ATTN_CHECKS = (
-    ("ragged_d64", 2, 8, 4, 1499, 64, torch.bfloat16, 0.0, 0, "bhsd"),
-    ("ragged_d128_window", 1, 8, 2, 1499, 128, torch.bfloat16, 0.0, 700,
+    ("ragged_d64", 2, 8, 4, 1499, 64, 64, torch.bfloat16, 0.0, 0, "bhsd"),
+    ("ragged_d128_window", 1, 8, 2, 1499, 128, 128, torch.bfloat16, 0.0, 700,
      "bhsd"),
-    ("strided_d128", 2, 16, 4, 1500, 128, torch.bfloat16, 0.0, 0, "bshd"),
-    ("strided_d256_softcap_window", 1, 8, 4, 1050, 256, torch.bfloat16, 50.0,
-     300, "bshd"),
-    ("f32_ragged_d64", 2, 8, 4, 1499, 64, torch.float32, 0.0, 0, "bhsd"),
-    ("f32_strided_d64_softcap_window", 2, 8, 4, 1050, 64, torch.float32,
-     50.0, 300, "bshd"),
-    ("f32_strided_d128_window", 2, 16, 4, 1500, 128, torch.float32, 0.0, 700,
+    ("strided_d128", 2, 16, 4, 1500, 128, 128, torch.bfloat16, 0.0, 0,
      "bshd"),
-    ("f32_simt_d96", 1, 8, 2, 1499, 96, torch.float32, 0.0, 0, "bhsd"),
+    ("strided_d256_softcap_window", 1, 8, 4, 1050, 256, 256, torch.bfloat16,
+     50.0, 300, "bshd"),
+    ("mla_strided_ragged_d192_v128", 2, 16, 16, 1499, 192, 128,
+     torch.bfloat16, 0.0, 0, "bshd"),
+    ("mla_strided_d192_v128_window", 1, 8, 8, 1050, 192, 128, torch.bfloat16,
+     0.0, 300, "bshd"),
+    ("f32_ragged_d64", 2, 8, 4, 1499, 64, 64, torch.float32, 0.0, 0, "bhsd"),
+    ("f32_strided_d64_softcap_window", 2, 8, 4, 1050, 64, 64, torch.float32,
+     50.0, 300, "bshd"),
+    ("f32_strided_d128_window", 2, 16, 4, 1500, 128, 128, torch.float32, 0.0,
+     700, "bshd"),
+    ("f32_simt_d96", 1, 8, 2, 1499, 96, 96, torch.float32, 0.0, 0, "bhsd"),
+    ("f32_simt_mla_strided_ragged_d192_v128", 1, 8, 8, 1499, 192, 128,
+     torch.float32, 0.0, 0, "bshd"),
 )
 B8_SOURCE = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
              "tf32": "src/repro_torch/csrc/flash_attention_tf32.cu",
@@ -407,11 +434,49 @@ SPREAD_RANGE = (0.5, 2.0)
 # nothing drops), 256 positions decoded; O_LAST / O_FIRST the positions of
 # Gemma2's prefill logits that its decode is held to (the last past the
 # window, where the local layers' decode mask bites); O_PROFILE decode steps
-# under the profiler; the child's time limit in seconds
+# under the profiler; the child's time limit in seconds.  Gemma2 runs at
+# O_GEMMA_LAYERS of its 26 layers (4 pairs; every width and the 4,352
+# positions kept, so the decode past the window is still held), to leave
+# phase (p) its time in the script's 1,200 s
 O_GEMMA = ("gemma2-2b", 2, 4352, 4352)
+O_GEMMA_LAYERS = 8
 O_OLMOE = ("olmoe-1b-7b", 4, 1024, 256)
 O_LAST, O_FIRST, O_PROFILE = 256, 64, 32
 O_TIMEOUT = 600
+# phase (p), serving for the last three LM families, in a process of its
+# own as phase (o): (arch, layers or None for the registered depth, batch,
+# prefill tokens, decode steps).  DeepSeek-V2 at 4 of its 60 layers (the
+# dense first layer and 3 MoE layers, 27.2 GB of bf16 params; the 60 layers'
+# 480 GB fit no card), capacity factor 8 (nothing drops); Mamba2-130m and
+# Zamba2-2.7b at full depth.  The child's time limit in seconds
+P_DEEPSEEK = ("deepseek-v2-236b", 4, 2, 1024, 128)
+P_MAMBA = ("mamba2-130m", None, 4, 4096, 256)
+P_ZAMBA = ("zamba2-2.7b", None, 2, 2048, 128)
+P_TIMEOUT = 480
+# _ssd_chunk_scan against ssd_reference on the card at Mamba2's shape, max
+# |difference| over the largest |y|: the same float32 recurrence, the
+# chunk's decays as exp of cumulative sums against a product of per-step
+# decays, summed in another order over 4,096 steps (the reference's own
+# test holds 1e-4 at S 96)
+TOL_SSD = 1e-4
+# decode against prefill for Mamba2 and Zamba2 in bf16, a bound of their
+# own: both round the same bf16 values at other points (projections over
+# one row against over the batch's rows, the chunk's exp of cumulative sums
+# against a product of per-step decays), and a stack of random-weight SSD
+# mixers amplifies a 1-ulp difference more than an attention stack does:
+# Mamba2-130m at full width reads 0.092 on an H100 over 256 positions, and
+# ``scripts/ssm_decode_cpu.py`` on the CPU 0.086 over 64 (top-1 0.84), where
+# float32 compute reads 2.6e-5 (the algorithm agrees) and the state not
+# decayed 1.41.  The planted fault must read above the bound
+TOL_DECODE_SSM = 0.25
+# Zamba2's hidden states through B8 against those through the plain
+# flash_chunked, relative Frobenius: TOL_LATENTS's bf16 rounding, amplified
+# through 54 SSD mixers as above (0.0537 on an H100 at 2 x 2,048 tokens)
+TOL_LATENTS_SSM = 0.15
+# Mamba2's decode against its prefill in float32 compute on the card, its
+# first P_F32 positions: the same float32 arithmetic in another order (no
+# TF32: serve_main_p turns it off)
+TOL_DECODE_F32, P_F32 = 1e-3, 64
 # decode against prefill: max |logit difference| over the largest |logit|.
 # Both run bf16 compute but round at other points (decode attention sums in
 # float32 over the bf16 cache; B8 rounds its output to bf16), and bf16
@@ -420,12 +485,14 @@ O_TIMEOUT = 600
 # above the bound: the cache read one slot off (the first O_FIRST
 # positions) and the local layers' window mask off (the last O_LAST,
 # resumed from the sound run's cache before the window bites).  On an H100
-# (700 W) at these sizes the sound decode reads 0.045 (Gemma2's first 64
-# positions), 0.048 (past the window) and 0.022 (OLMoE), the window fault
-# 0.120 and the slot fault 0.679: the bound sits 1.6x from 0.048 and from
-# 0.120 (``scripts/decode_faults_cpu.py`` gives the same order at a small
-# width on the CPU)
-TOL_DECODE = 0.075
+# (700 W), with Gemma2 at O_GEMMA_LAYERS layers, the sound decode reads
+# 0.0215 (Gemma2's first 64 positions), 0.0222 (past the window), 0.0222
+# (OLMoE) and 0.0180 (DeepSeek-V2, phase (p1)), the window fault 0.0822 and
+# the slot fault 0.410: the bound sits 2.0x above the largest sound reading
+# and 1.8x below the window fault (at Gemma2's 26 layers the readings were
+# 0.048 and 0.120, under a bound of 0.075; ``scripts/decode_faults_cpu.py``
+# gives the same order at a small width on the CPU)
+TOL_DECODE = 0.045
 # Gemma2's decode against its prefill: the share of positions whose top
 # logit agrees
 TOP1_MIN = 0.99
@@ -1286,50 +1353,75 @@ def _o_config(name, **kw):
     return dataclasses.replace(get_arch(name), **kw)
 
 
-def _tree_bytes(tree):
+def _tree_bytes(tree, per=lambda t: t.numel() * t.element_size()):
     if isinstance(tree, dict):
-        return sum(_tree_bytes(v) for v in tree.values())
+        return sum(_tree_bytes(v, per) for v in tree.values())
     if isinstance(tree, (list, tuple)):
-        return sum(_tree_bytes(v) for v in tree)
-    return tree.numel() * tree.element_size()
+        return sum(_tree_bytes(v, per) for v in tree)
+    return per(tree)
 
 
-def _b8_model_row(name, call, launches, reps, tag):
+def _b8_model_row(name, call, launches, reps, tag, route, simt_too=False):
     """B8 at a model path's shape (the first call of its kind, recorded on
-    that path): held against the plain ``flash_chunked_ref``, timed with
-    CUDA events beside the plain version and, without softcap or window,
-    SDPA; returns its row of the ``kernels`` line."""
+    that path): its kernel (``route``, the one ``kernel_route`` names)
+    held against the plain ``flash_chunked_ref``, timed with CUDA events
+    beside the plain version and, without softcap or window, SDPA (which
+    takes Dv != D too).  ``simt_too``: the SIMT kernel at the same shape
+    also held and timed, a row of its own with 0 launches (timing only).
+    The bound counts 2 B Hq (D + Dv) flops a kept (row, col) pair at the
+    bf16 rate.  Returns the rows of the ``kernels`` line."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models.attention import flash_chunked, flash_chunked_ref
     q, k, v, kw = call
     b, s_len, hq, d = q.shape
-    route = flash_ops.kernel_route(q.dtype, d)
-    check(route == "wgmma", f"{name}: B8 route {route}")
-    got = flash_chunked(q, k, v, **kw)
-    err = attn_close(got, flash_chunked_ref(q, k, v, **kw), name)
-    ms = time_ms(lambda: flash_chunked(q, k, v, **kw), reps)
+    dv = v.shape[-1]
+    got_route = flash_ops.kernel_route(q.dtype, d, dv)
+    check(got_route == route and q.dtype == torch.bfloat16,
+          f"{name}: B8 route {got_route}, {q.dtype}")
+    want = flash_chunked_ref(q, k, v, **kw)
+    calls = {route: lambda: flash_chunked(q, k, v, **kw)}
+    if simt_too:
+        out_s = torch.empty_like(want)
+        kw_s = dict(scale=kw["scale"], softcap=kw["cap"],
+                    window=kw["window"])
+
+        def simt():
+            flash_ops.launch_simt(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), out_s.transpose(1, 2),
+                                  **kw_s)
+            return out_s
+        calls["simt"] = simt
     plain_ms = time_ms(lambda: flash_chunked_ref(q, k, v, **kw), 2)
-    flops = 4.0 * b * hq * d * attn_pairs(s_len, kw["window"])
-    b_ms, b_by = bound(nbytes(q, k, v) + got.numel() * got.element_size(),
+    flops = 2.0 * b * hq * (d + dv) * attn_pairs(s_len, kw["window"])
+    b_ms, b_by = bound(nbytes(q, k, v) + want.numel() * want.element_size(),
                        flops, BF16_FLOPS_PER_S)
     lib_ms = None
     if not kw["cap"] and not kw["window"]:
         qt, kt, vt = (t_.transpose(1, 2) for t_ in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
-    log(f"{tag} {name}: q {tuple(q.shape)} (B, S, H, D), {k.shape[2]} KV "
-        f"heads, softcap {kw['cap']}, window {kw['window']}: the "
-        f"tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-        f"{b_ms / ms:.1%} of the bound), bound {b_ms:.4f} ms by {b_by}, "
-        f"plain {plain_ms:.3f} ms"
-        + ("" if lib_ms is None else f", SDPA {lib_ms:.4f} ms")
-        + f"; max abs err {err:.3e} against the plain version; "
-        f"{launches} launches on the path")
-    return {"name": name, "route": "cuda", "source": B8_SOURCE["wgmma"],
-            "replaces": B8_REPLACES, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            qt, kt, vt, is_causal=True, enable_gqa=True,
+            scale=kw["scale"]), reps)
+    rows = []
+    for r, fn in calls.items():
+        err = attn_close(fn(), want, f"{name} {B8_LABEL[r]}")
+        ms = time_ms(fn, reps)
+        row = name if r == route else f"{name}_{r}"
+        n = launches if r == route else 0
+        log(f"{tag} {row}: q {tuple(q.shape)} (B, S, H, D), v width {dv}, "
+            f"{k.shape[2]} KV heads, softcap {kw['cap']}, window "
+            f"{kw['window']}: the {B8_LABEL[r]} kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the "
+            f"bound), bound {b_ms:.4f} ms by {b_by}, plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f", SDPA {lib_ms:.4f} ms")
+            + f"; max abs err {err:.3e} against the plain version; {n} "
+            f"launches on the path" + ("" if n else " (timing only)"))
+        rows.append({"name": row, "route": "cuda", "source": B8_SOURCE[r],
+                     "replaces": B8_REPLACES, "launches": n,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+    return rows
 
 
 def _decode(model, params, cache, tokens, lo, hi, keep):
@@ -1441,18 +1533,22 @@ def _decode_busy(model, params, tokens, max_len):
     return busy, wall, top
 
 
-def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev):
-    """One model of phase (o): ``init_params`` on the card; ``hidden_states``
-    of ``batch`` x ``s_len`` seeded tokens through B8 (launch counters at 0
-    just before: B8's tensor-core kernel once a layer, nothing else) and
-    through the plain ``flash_chunked_ref``; B8 held and timed at each of
-    the path's attention shapes; teacher-forced decode of ``n_dec``
+def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev, *,
+                b8_route="wgmma", b8_count=None, simt_too=False,
+                faults=None, tol=TOL_DECODE, tol_h=TOL_LATENTS):
+    """One model of phases (o) and (p): ``init_params`` on the card;
+    ``hidden_states`` of ``batch`` x ``s_len`` seeded tokens through B8
+    (launch counters at 0 just before: B8's ``b8_route`` kernel
+    ``b8_count`` times, default once a layer, nothing else) and, where B8
+    runs, through the plain ``flash_chunked_ref``; B8 held and timed at
+    each of the path's attention shapes (``_b8_model_row``; ``simt_too``:
+    the SIMT kernel beside it); teacher-forced decode of ``n_dec``
     positions from ``init_cache(batch, n_dec)`` held against the prefill's
-    logits at the positions ``keep`` (TOL_DECODE; for Gemma2 also
-    TOP1_MIN, and the two faults of ``_planted_faults`` must exceed
-    TOL_DECODE); decode tokens/s, the busy share of O_PROFILE steps, the
-    cache bytes and the peak memory.  Returns ``(rows, model, params,
-    tokens)``."""
+    logits at the positions ``keep`` (``tol``; for Gemma2 also TOP1_MIN);
+    the planted ``faults`` (``_planted_faults`` or ``_p_faults``) each
+    read above ``tol``; decode tokens/s, the busy share of O_PROFILE
+    steps, the cache bytes and the peak memory.  Returns ``(rows, model,
+    params, tokens)``."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.models.attention import flash_chunked, flash_chunked_ref
@@ -1464,12 +1560,23 @@ def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev):
     params = model.init_params(0, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    n_par = _tree_bytes(params) / 4
+    n_par = _tree_bytes(params, per=torch.Tensor.numel)
+    b8_count = cfg.n_layers if b8_count is None else b8_count
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
-        f"vocab {cfg.vocab_size}"
+        + (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+           f"{cfg.resolved_head_dim}, " if cfg.n_heads else "")
+        + (f"MLA (kv_lora {cfg.kv_lora_rank}, q_nope {cfg.q_nope_dim}, "
+           f"q_rope {cfg.q_rope_dim}, v {cfg.v_head_dim}), "
+           if cfg.is_mla else "")
+        + (f"SSD (state {cfg.ssm_state}, {cfg.ssm_nheads} heads of "
+           f"{cfg.ssm_headdim}, chunk {cfg.ssm_chunk}"
+           + (f", the shared block every {cfg.shared_attn_every}"
+              if cfg.shared_attn_every else "") + "), "
+           if cfg.ssm_state else "")
+        + f"vocab {cfg.vocab_size}"
         + (f", {cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff "
-           f"{cfg.d_ff_expert}, capacity factor {cfg.capacity_factor}"
+           f"{cfg.d_ff_expert}, {cfg.n_shared_experts} shared, capacity "
+           f"factor {cfg.capacity_factor}"
            if cfg.is_moe else f", d_ff {cfg.d_ff}")
         + f"; {cfg.param_dtype} params ({n_par / 1e9:.3f} B, "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), "
@@ -1492,27 +1599,32 @@ def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev):
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    want = {"flash_attention_wgmma": cfg.n_layers}
+    want = {f"flash_attention_{b8_route}": b8_count} if b8_count else {}
     check(launches == {k_: want.get(k_, 0) for k_ in launches},
           f"{cfg.name} hidden_states launches "
           f"{ {k_: v_ for k_, v_ in launches.items() if v_} }, expected "
           f"{want}")
-    check(sum(counts.values()) == cfg.n_layers, f"B8 calls {counts}")
-    h_p = LMModel(cfg, attention=flash_chunked_ref).hidden_states(params,
-                                                                  tokens)
-    rel_h = float((h.float() - h_p.float()).norm() / h_p.float().norm())
-    check(bool(torch.isfinite(h).all()) and rel_h <= TOL_LATENTS,
-          f"{cfg.name} hidden states, B8 vs plain: {rel_h}")
+    check(sum(counts.values()) == b8_count, f"B8 calls {counts}")
+    check(bool(torch.isfinite(h).all()), f"{cfg.name} hidden states")
+    if b8_count:
+        h_p = LMModel(cfg, attention=flash_chunked_ref).hidden_states(
+            params, tokens)
+        rel_h = float((h.float() - h_p.float()).norm() / h_p.float().norm())
+        check(rel_h <= tol_h,
+              f"{cfg.name} hidden states, B8 vs plain: {rel_h}")
+        del h_p
+        vs = (f"B8's {B8_LABEL[b8_route]} kernel launched {b8_count} times "
+              f"({', '.join(f'{k_} {v_}' for k_, v_ in sorted(counts.items()))}"
+              f"), nothing else; {rel_h:.3e} from the plain flash_chunked's "
+              f"(relative Frobenius, tol {tol_h})")
+    else:
+        vs = "no kernel of the port launched (no attention; SSD is plain)"
     log(f"{tag} hidden_states of {batch} x {s_len} tokens: {t_pre:.2f}s "
-        f"({batch * s_len / t_pre:.0f} tokens/s); B8's tensor-core kernel "
-        f"launched {launches['flash_attention_wgmma']} times "
-        f"({', '.join(f'{k_} {v_}' for k_, v_ in sorted(counts.items()))}), "
-        f"nothing else; {rel_h:.3e} from the plain flash_chunked's "
-        f"(relative Frobenius, tol {TOL_LATENTS})")
-    del h_p
-    rows = [_b8_model_row(f"flash_attention_{name}" + (
-        f"_{kind}" if len(calls) > 1 else ""), call, counts[kind], 5, tag)
-        for kind, call in sorted(calls.items())]
+        f"({batch * s_len / t_pre:.0f} tokens/s); {vs}")
+    rows = [r_ for kind, call in sorted(calls.items())
+            for r_ in _b8_model_row(f"flash_attention_{name}" + (
+                f"_{kind}" if len(calls) > 1 else ""), call, counts[kind], 5,
+                tag, b8_route, simt_too)]
     del calls
 
     idx = torch.tensor(sorted(keep), device=dev)
@@ -1544,24 +1656,22 @@ def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev):
     parts = []
     for label, sel in spans:
         rel, frob, top1 = _vs_prefill(dec[:, sel], full[:, sel], scale)
-        check(rel <= TOL_DECODE, f"{cfg.name} decode vs prefill at {label}: "
-              f"{rel}")
+        check(rel <= tol, f"{cfg.name} decode vs prefill at {label}: {rel}")
         check(snap is None or top1 >= TOP1_MIN,
               f"{cfg.name} decode vs prefill at {label}: top-1 {top1}")
         parts.append(f"{label}: max rel err {rel:.3e}, Frobenius "
                      f"{frob:.3e}, top-1 agreement {top1:.4f}")
     del dec
-    if snap is not None:
-        faults = _planted_faults(model, params, snap, tokens, cut, n_dec,
-                                 full, scale)
+    if faults is not None:
+        read = faults(model, params, snap, tokens, cut, n_dec, full, scale)
         del snap
         log(f"{tag} planted faults against the prefill (each must exceed "
-            f"tol {TOL_DECODE}): " + "; ".join(
+            f"tol {tol}): " + "; ".join(
                 f"{k_}: max rel err {r_:.3e}, Frobenius {f_:.3e}, top-1 "
-                f"{t_:.4f}" for k_, (r_, f_, t_) in faults.items()))
-        for k_, (r_, _, _) in faults.items():
-            check(r_ > TOL_DECODE, f"{cfg.name} planted fault {k_} read "
-                  f"{r_}, within TOL_DECODE {TOL_DECODE}")
+                f"{t_:.4f}" for k_, (r_, f_, t_) in read.items()))
+        for k_, (r_, _, _) in read.items():
+            check(r_ > tol, f"{cfg.name} planted fault {k_} read {r_}, "
+                  f"within the bound {tol}")
     del full
     ms_step = t_dec / n_dec * 1e3
     busy, wall, top = _decode_busy(model, params, tokens, n_dec)
@@ -1569,9 +1679,9 @@ def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev):
     log(f"{tag} teacher-forced serve_step over {n_dec} positions from "
         f"init_cache({batch}, {n_dec}) (bf16, {cache_bytes / 1e9:.3f} GB): "
         f"{t_dec:.2f}s, {ms_step:.3f} ms a step, {batch * n_dec / t_dec:.1f} "
-        f"tokens/s; no kernel of the port launched (decode attention is "
-        f"plain, as in the reference); against the prefill's logits "
-        f"(tol {TOL_DECODE}): " + "; ".join(parts))
+        f"tokens/s; no kernel of the port launched (decode is plain, as in "
+        f"the reference); against the prefill's logits (tol {tol}): "
+        + "; ".join(parts))
     log(f"{tag} profiler, {O_PROFILE} decode steps: device busy {busy:.3f} "
         f"ms a step against {wall:.3f} ms of profiled wall ({busy / wall:.1%})"
         f" and {ms_step:.3f} ms unprofiled ({busy / ms_step:.1%}); peak "
@@ -1715,25 +1825,170 @@ def serve_examples(dev):
         f"edges")
 
 
-def serve_main(path):
-    """Phase (o), run as ``chip_smoke.py --serve-phase PATH`` by
-    :func:`serve_phase`: (o1) Gemma2-2b and (o2) OLMoE-1B-7B through
-    ``serve_model``, OLMoE's routed experts (``serve_moe_checks``), (o3)
-    A7's examples; writes the B8 rows as JSON to ``path``."""
+def _patched_decode(model, params, tokens, n_dec, full, scale, mod, attr,
+                    fn):
+    """Decode positions 0 .. n_dec - 1 from a fresh cache with ``mod.attr``
+    replaced by ``fn``, held against the prefill's logits ``full`` as the
+    sound run (``_vs_prefill``)."""
+    sound = getattr(mod, attr)
+    cache = model.init_cache(tokens.shape[0], n_dec, device=tokens.device)
+    setattr(mod, attr, fn)
+    try:
+        dec, _ = _decode(model, params, cache, tokens, 0, n_dec,
+                         range(n_dec))
+    finally:
+        setattr(mod, attr, sound)
+    return _vs_prefill(dec, full, scale)
+
+
+def _p_faults(model, params, snap, tokens, cut, n_dec, full, scale):
+    """Phase (p)'s planted fault, over every decoded position from a fresh
+    cache: for MLA the latent pair written one slot off (at ``cur_len``,
+    clamped, where the sound step writes ``cur_len - 1``: the new token's
+    latent lies under the mask, each earlier one a slot late); for Mamba2
+    and Zamba2 the SSM state not decayed (``exp(dt A)`` replaced by 1).
+    Returns ``{fault: (max rel, Frobenius rel, top-1)}``."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import mamba2 as mamba_lib
+    del snap, cut
+    if model.cfg.is_mla:
+        def late(cur_len, smax):
+            return cur_len.reshape(1).clamp(0, smax - 1).long()
+        return {"latent cache slot + 1": _patched_decode(
+            model, params, tokens, n_dec, full, scale, attn_lib,
+            "cache_slot", late)}
+
+    def kept(dt, A):
+        return torch.ones_like(dt * A[None, :])
+    return {"ssm state not decayed": _patched_decode(
+        model, params, tokens, n_dec, full, scale, mamba_lib,
+        "_state_decay", kept)}
+
+
+def serve_ssd_check(model, params, tokens, tag):
+    """(p2): ``_ssd_chunk_scan`` against ``ssd_reference`` on the card, on
+    the inputs layer 0's mixer gives them on the path (recorded from a call
+    of ``mamba2_apply`` on the embedded tokens), within TOL_SSD; both
+    timed."""
+    from repro_torch.models import mamba2 as mamba_lib
+    from repro_torch.models.blocks import _norm
+    cfg = model.cfg
+    blk = params["blocks"][0]
+    seen = []
+    sound = mamba_lib._ssd_chunk_scan
+
+    def grab(*a, **kw):
+        seen.append((a, kw))
+        return sound(*a, **kw)
+    x = _norm(blk["ln"], model._embed_in(params, tokens), cfg)
+    mamba_lib._ssd_chunk_scan = grab
+    try:
+        with torch.inference_mode():
+            mamba_lib.mamba2_apply(blk["mixer"], x, cfg)
+    finally:
+        mamba_lib._ssd_chunk_scan = sound
+    check(len(seen) == 1, f"layer 0's mixer called the chunk scan "
+          f"{len(seen)} times")
+    args, kw = seen[0]
+    with torch.inference_mode():
+        y1 = sound(*args, **kw)
+        y2 = mamba_lib.ssd_reference(*args)
+        ms1 = time_ms(lambda: sound(*args, **kw), 3)
+        ms2 = time_ms(lambda: mamba_lib.ssd_reference(*args), 1)
+    rel = max_err(y1, y2) / float(y2.abs().max())
+    check(bool(torch.isfinite(y1).all()) and rel <= TOL_SSD,
+          f"_ssd_chunk_scan vs ssd_reference: {rel}")
+    log(f"{tag} _ssd_chunk_scan (chunk {kw['chunk']}) against ssd_reference "
+        f"on layer 0's inputs, xh {tuple(args[0].shape)} (B, S, H, P), "
+        f"state {args[3].shape[-1]}: max rel err {rel:.3e} (tol {TOL_SSD}); "
+        f"{ms1:.3f} ms against the recurrence's {ms2:.1f} ms (plain PyTorch "
+        f"both: the reference has no Pallas kernel here)")
+
+
+def serve_f32_decode(model, params, tokens, tag):
+    """(p2) in float32 compute (the same float32 params): decode of the
+    first P_F32 positions against the prefill of those positions, within
+    TOL_DECODE_F32."""
+    from repro_torch.models.transformer import LMModel
+    m32 = LMModel(dataclasses.replace(model.cfg, compute_dtype="float32"))
+    x = tokens[:, :P_F32]
+    with torch.inference_mode():
+        full = m32._logits_fn(params)(m32.hidden_states(params, x)).float()
+    cache = m32.init_cache(x.shape[0], P_F32, dtype=torch.float32,
+                           device=x.device)
+    dec, _ = _decode(m32, params, cache, x, 0, P_F32, range(P_F32))
+    rel, frob, top1 = _vs_prefill(dec, full, float(full.abs().max()))
+    check(rel <= TOL_DECODE_F32, f"{model.cfg.name} float32 decode vs "
+          f"prefill: {rel}")
+    log(f"{tag} float32 compute, {P_F32} positions from a float32 cache: "
+        f"decode against prefill max rel err {rel:.3e}, Frobenius "
+        f"{frob:.3e}, top-1 {top1:.4f} (tol {TOL_DECODE_F32})")
+
+
+def serve_main_p(path):
+    """Phase (p), run as ``chip_smoke.py --serve-phase-p PATH`` by
+    :func:`serve_phase`: (p1) DeepSeek-V2 at 4 layers (MLA, B8 at D 192,
+    Dv 128 on the tensor-core kernel, the SIMT kernel timed beside it),
+    (p2) Mamba2-130m (no attention; the chunk scan against the recurrence)
+    and (p3) Zamba2-2.7b (the shared block's B8 at D 80 on the SIMT
+    kernel) through ``serve_model``, each with its planted fault
+    (``_p_faults``); writes the B8 rows as JSON to ``path``."""
+    dev = _serve_setup("p")
+    t_p = time.perf_counter()
+    rows = []
+    for name, (arch, layers, b, s_len, n_dec), tag, cfg_kw, kw in (
+            ("deepseek", P_DEEPSEEK, "[p1]", {"capacity_factor": 8.0},
+             dict(b8_route="wgmma", simt_too=True)),
+            ("mamba2", P_MAMBA, "[p2]", {},
+             dict(b8_count=0, tol=TOL_DECODE_SSM)),
+            ("zamba2", P_ZAMBA, "[p3]", {},
+             dict(b8_route="simt", tol=TOL_DECODE_SSM,
+                  tol_h=TOL_LATENTS_SSM))):
+        if layers:
+            cfg_kw["n_layers"] = layers
+        cfg = _o_config(arch, **cfg_kw)
+        if name == "zamba2":
+            kw["b8_count"] = cfg.n_layers // cfg.shared_attn_every
+        rows_m, model, params, tokens = serve_model(
+            name, cfg, b, s_len, n_dec, list(range(n_dec)), tag, dev,
+            faults=_p_faults, **kw)
+        rows += rows_m
+        if name == "mamba2":
+            serve_ssd_check(model, params, tokens, tag)
+            serve_f32_decode(model, params, tokens, tag)
+        del model, params, tokens
+        torch.cuda.empty_cache()
+    log(f"[p] phase (p) took {time.perf_counter() - t_p:.1f}s in its process")
+    with open(path, "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def _serve_setup(phase):
+    """The child process of phase (o) or (p): the port on the path, exact
+    float32 and bf16 products, the card named."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    log(f"[{phase}] {torch.cuda.get_device_name(0)} ({card_line()}), a "
+        f"process of its own")
+    return torch.device("cuda")
+
+
+def serve_main(path):
+    """Phase (o), run as ``chip_smoke.py --serve-phase PATH`` by
+    :func:`serve_phase`: (o1) Gemma2-2b and (o2) OLMoE-1B-7B through
+    ``serve_model``, OLMoE's routed experts (``serve_moe_checks``), (o3)
+    A7's examples; writes the B8 rows as JSON to ``path``."""
+    dev = _serve_setup("o")
     t_o = time.perf_counter()
-    log(f"[o] {torch.cuda.get_device_name(0)} ({card_line()}), a process of "
-        f"its own")
     arch, b, s_len, n_dec = O_GEMMA
     rows, model, params, tokens = serve_model(
-        "gemma2", _o_config(arch), b, s_len, n_dec,
+        "gemma2", _o_config(arch, n_layers=O_GEMMA_LAYERS), b, s_len, n_dec,
         list(range(O_FIRST)) + list(range(n_dec - O_LAST, n_dec)), "[o1]",
-        dev)
+        dev, faults=_planted_faults)
     del model, params, tokens
     torch.cuda.empty_cache()
     arch, b, s_len, n_dec = O_OLMOE
@@ -1751,21 +2006,27 @@ def serve_main(path):
     return 0
 
 
-def serve_phase():
-    """Phase (o) in a child process (see ``serve_main``); returns its rows
-    of the ``kernels`` line."""
+SERVE_PHASES = {"o": ("--serve-phase", O_TIMEOUT),
+                "p": ("--serve-phase-p", P_TIMEOUT)}
+
+
+def serve_phase(phase):
+    """Phase (o) or (p) in a child process (see ``serve_main`` and
+    ``serve_main_p``); returns its rows of the ``kernels`` line."""
     import tempfile
+    flag, timeout = SERVE_PHASES[phase]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "rows.json")
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--serve-phase", path], timeout=O_TIMEOUT)
-        check(res.returncode == 0, f"phase (o) exited with {res.returncode}")
+                              flag, path], timeout=timeout)
+        check(res.returncode == 0,
+              f"phase ({phase}) exited with {res.returncode}")
         with open(path) as f:
             rows = json.load(f)
-    log(f"[o] phase (o) took {time.perf_counter() - t0:.1f}s with its "
-        f"process's start")
+    log(f"[{phase}] phase ({phase}) took {time.perf_counter() - t0:.1f}s with "
+        f"its process's start")
     return rows
 
 
@@ -1775,6 +2036,8 @@ def main():
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-phase":
         return serve_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-phase-p":
+        return serve_main_p(sys.argv[2])
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import kernels
@@ -3018,12 +3281,13 @@ def main():
             f"{errs[route]:.3e} against the plain version (the SIMT kernel "
             f"{errs['simt']:.3e})")
         del q, k, v, got, want, buf, fns
-    for name, b, hq, hkv, s_len, d_h, dt, cap, win, layout in ATTN_CHECKS:
-        shape = (lambda h: (b, s_len, h, d_h)) if layout == "bshd" else \
-            (lambda h: (b, h, s_len, d_h))
-        q, k, v = (torch.randn(shape(h), generator=gen, device=dev).to(dt)
-                   for h in (hq, hkv, hkv))
-        route = flash_ops.kernel_route(dt, d_h)
+    for name, b, hq, hkv, s_len, d_h, d_v, dt, cap, win, layout in \
+            ATTN_CHECKS:
+        shape = (lambda h, w: (b, s_len, h, w)) if layout == "bshd" else \
+            (lambda h, w: (b, h, s_len, w))
+        q, k, v = (torch.randn(shape(h, w), generator=gen, device=dev).to(dt)
+                   for h, w in ((hq, d_h), (hkv, d_h), (hkv, d_v)))
+        route = flash_ops.kernel_route(dt, d_h, d_v)
         kernels.reset_launches()
         if layout == "bshd":
             got = flash_chunked(q, k, v, scale=d_h ** -0.5, cap=cap,
@@ -3037,7 +3301,8 @@ def main():
         err = attn_close(got, flash_attention_ref(q, k, v, softcap=cap,
                                                   window=win), name)
         log(f"[h] {name}: B {b}, S {s_len}, Hq {hq}, Hkv {hkv}, D {d_h}, "
-            f"{str(dt)[6:]}, softcap {cap}, window {win}, {layout} layout "
+            f"Dv {d_v}, {str(dt)[6:]}, softcap {cap}, window {win}, {layout} "
+            f"layout "
             f"(q strides {tuple(q.stride())}): the {B8_LABEL[route]} kernel "
             f"through the routed call, max abs err {err:.3e} against the "
             "plain version")
@@ -4101,7 +4366,10 @@ def main():
                   m_quality["(2,1) run 1"], expected, card)
 
     # ---- (o) the LM serving path and A7's examples -------------------------
-    out.extend(serve_phase())
+    out.extend(serve_phase("o"))
+
+    # ---- (p) serving for MLA, Mamba2 and Zamba2 ----------------------------
+    out.extend(serve_phase("p"))
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 

@@ -83,11 +83,26 @@ def _n_stacked(tree) -> int:
     return len(np.asarray(tree))
 
 
+def _layer(blocks, dev, i):
+    """Layer ``i`` of a stacked ``blocks`` tree.  A Zamba2 super-block's
+    ``mamba`` entry is stacked twice, (L, e): it becomes a list of the e
+    Mamba2 blocks' trees."""
+    layer = _torch_tree(blocks, dev, i)
+    if isinstance(blocks, Mapping) and "mamba" in blocks:
+        stacked = blocks["mamba"]
+        leaf = stacked
+        while isinstance(leaf, Mapping):
+            leaf = next(iter(leaf.values()))
+        layer["mamba"] = [_torch_tree(stacked, dev, (i, j))
+                          for j in range(np.asarray(leaf).shape[1])]
+    return layer
+
+
 def _unstacked(tree, stacked_key: str, dev) -> dict:
     out = {k: _torch_tree(v, dev) for k, v in tree.items()
            if k != stacked_key}
     blocks = tree[stacked_key]
-    out[stacked_key] = [_torch_tree(blocks, dev, i)
+    out[stacked_key] = [_layer(blocks, dev, i)
                         for i in range(_n_stacked(blocks))]
     return out
 
@@ -99,16 +114,20 @@ def lm_params_from_jax(params_np, device="cuda") -> dict:
     JAX stacks the layers: each leaf of ``params["blocks"]`` has a leading
     L dim (a Gemma2 pair's ``local`` / ``global`` dicts and a MoE block's
     ``ffn`` dict included).  The port keeps a list of per-layer dicts of
-    the same nested keys; every other entry (``embed``, ``final_norm``,
-    ``lm_head``, a dense ``first`` layer) is copied.  Each leaf keeps its
-    dtype (the MoE router stays float32).
+    the same nested keys; a Zamba2 super-block's ``mamba`` leaves, (L, e)
+    in JAX, become a list of e per-block dicts in each layer.  Every other
+    entry (``embed``, ``final_norm``, ``lm_head``, a dense ``first``
+    layer, Zamba2's ``shared`` block) is copied.  Each leaf keeps its
+    dtype (the MoE router and Mamba2's A_log, dt_bias and D_skip stay
+    float32).
     """
     return _unstacked(params_np, "blocks", resolve_device(device))
 
 
 def lm_cache_from_jax(cache_np, device="cuda") -> dict:
-    """The port's KV cache (``LMModel.init_cache``'s layout: a list of
-    per-layer dicts under ``blocks``) from a JAX ``init_cache`` /
-    ``serve_step`` cache given as numpy, whose ``blocks`` leaves are
-    stacked over the layers."""
+    """The port's cache (``LMModel.init_cache``'s layout: a list of
+    per-layer dicts under ``blocks``; Zamba2's Mamba2 caches a list in
+    each layer) from a JAX ``init_cache`` / ``serve_step`` cache given as
+    numpy, whose ``blocks`` leaves are stacked over the layers (Zamba2's
+    ``mamba`` leaves over (L, e))."""
     return _unstacked(cache_np, "blocks", resolve_device(device))

@@ -99,9 +99,9 @@ def prng_key(seed: int) -> torch.Tensor:
     return torch.tensor([0, seed & _MASK], dtype=torch.int64)
 
 
-def _counters(shape, device):
+def _counters(shape, device, start: int = 0):
     n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return (i >> 32), (i & _MASK)
 
 
@@ -130,11 +130,12 @@ def fold_in(key, data) -> torch.Tensor:
     return torch.stack([b0, b1])
 
 
-def random_bits(key, shape, device=None) -> torch.Tensor:
+def random_bits(key, shape, device=None, *, start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (32-bit): int64 tensor of the uint32
-    patterns."""
+    patterns.  ``start``: the flat elements start .. start + prod(shape) - 1
+    of a larger draw from the same key (a large draw made in pieces)."""
     dev = _device(key, device)
-    b0, b1 = threefry2x32(_words(key, dev), *_counters(shape, dev))
+    b0, b1 = threefry2x32(_words(key, dev), *_counters(shape, dev, start))
     return (b0 ^ b1).reshape(shape)
 
 
@@ -144,10 +145,11 @@ def _as_float32(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key, shape=(), minval=0.0, maxval=1.0,
-            device=None) -> torch.Tensor:
+            device=None, *, start: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits as the mantissa
-    of a float in [1, 2), minus 1, scaled to [minval, maxval)."""
-    bits = random_bits(key, shape, device)
+    of a float in [1, 2), minus 1, scaled to [minval, maxval).  ``start``
+    as for ``random_bits``."""
+    bits = random_bits(key, shape, device, start=start)
     floats = _as_float32((bits >> 9) | 0x3F800000) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
     return (floats * float(hi - lo) + float(lo)).clamp_min(float(lo))
@@ -216,9 +218,10 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
 
 
-def normal(key, shape=(), device=None) -> torch.Tensor:
+def normal(key, shape=(), device=None, *, start: int = 0) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with
-    ``u`` uniform in (nextafter(-1, 0), 1); within 4 ulps of JAX."""
+    ``u`` uniform in (nextafter(-1, 0), 1); within 4 ulps of JAX.
+    ``start`` as for ``random_bits``."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform(key, shape, float(lo), 1.0, device)
+    u = uniform(key, shape, float(lo), 1.0, device, start=start)
     return erf_inv(u) * float(np.float32(np.sqrt(2.0)))

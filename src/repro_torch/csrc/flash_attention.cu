@@ -1,8 +1,10 @@
 // B8: causal GQA flash attention (online softmax), the SIMT kernel: fp32
-// and bf16, any D from 8 to 256 in steps of 8.  The port launches it for
-// float32 and for the D that the tensor-core kernel
-// (flash_attention_wgmma.cu: bf16 at D 64, 128 and 256) does not take;
-// kernels/flash_attention/ops.py chooses by dtype and D.
+// and bf16, any D (q and k) and Dv (v and out) from 8 to 256 in steps of
+// 8.  The port launches it for the float32 and bf16 (D, Dv) that the
+// tensor-core kernels (flash_attention_wgmma.cu: bf16 at D = Dv 64, 128
+// and 256 and at MLA's (192, 128); flash_attention_tf32.cu: float32 at
+// D = Dv 64 and 128) do not take; kernels/flash_attention/ops.py chooses
+// by dtype, D and Dv.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 //   flash_attention_pallas (body _flash_kernel).  No module of the JAX
@@ -20,12 +22,12 @@
 //   strides with a unit d stride, so the model's (B, S, H, D) layout needs
 //   no transpose copy.
 //
-// Bound on the H100: operations.  Causal attention does 4 B Hq D pairs
-//   flops (QK^T and PV over the lower triangle): in float32 at 67 TFLOP/s
-//   outside the tensor cores (MusicGen's prefill shape, B 4, S 1500, 32
-//   heads of 64: 36.9 GFLOP, 0.55 ms).  This kernel computes in fp32 FMA
-//   whatever the input type, so in bf16 it cannot come within 15x of the
-//   989 TFLOP/s bound; that case is the tensor-core kernel's.
+// Bound on the H100: operations.  Causal attention does 2 B Hq (D + Dv)
+//   pairs flops (QK^T and PV over the lower triangle): in float32 at 67
+//   TFLOP/s outside the tensor cores (MusicGen's prefill shape, B 4, S
+//   1500, 32 heads of 64: 36.9 GFLOP, 0.55 ms).  This kernel computes in
+//   fp32 FMA whatever the input type, so in bf16 it cannot come within 15x
+//   of the 989 TFLOP/s bound; that case is the tensor-core kernel's.
 //
 // Design: one block per (query tile of kBQ = 32 rows, head, batch) -- the
 //   TPU's sequential "arbitrary" KV grid axis becomes a loop over KV tiles
@@ -37,9 +39,10 @@
 //   eight rows at once (float4 loads, K rows padded to D + 4 floats so a
 //   quarter-warp's 16-byte loads hit distinct banks), the row max and sum
 //   are warp reductions, and for P.V lane l accumulates output columns l,
-//   l + 32, ... of its rows in registers, reading p from shared memory.
-//   Shared memory is 4 (96 D + 1152) bytes: above 48 KB (D >= 128) the
-//   launch raises the kernel's dynamic shared-memory limit first.
+//   l + 32, ... of its rows in registers (ceil(Dv / 32) of them), reading
+//   p from shared memory.  Shared memory is 4 (64 D + 32 Dv + 1152)
+//   bytes: above 48 KB (D = Dv >= 128) the launch raises the kernel's
+//   dynamic shared-memory limit first.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -77,23 +80,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__host__ __device__ inline size_t smem_bytes(int d) {
+__host__ __device__ inline size_t smem_bytes(int d, int dv) {
   return sizeof(float) * (static_cast<size_t>(kBQ) * d +
                           static_cast<size_t>(kBK) * (d + 4) +
-                          static_cast<size_t>(kBK) * d + kBQ * kBK);
+                          static_cast<size_t>(kBK) * dv + kBQ * kBK);
 }
 
-// NI = ceil(D / 32): output columns per lane.
+// NI = ceil(Dv / 32): output columns per lane.
 template <typename T, int NI>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_simt_kernel(const FlashArgs a) {
   extern __shared__ __align__(16) float sm[];
   const int D = a.d;
+  const int DV = a.dv;
   const int ldk = D + 4;
   float* qs = sm;                   // (kBQ, D)
   float* ks = qs + kBQ * D;         // (kBK, D + 4)
-  float* vs = ks + kBK * ldk;       // (kBK, D)
-  float* ps = vs + kBK * D;         // (kBQ, kBK) probabilities
+  float* vs = ks + kBK * ldk;       // (kBK, Dv)
+  float* ps = vs + kBK * DV;        // (kBQ, kBK) probabilities
 
   const int tid = threadIdx.x;
   const int w = tid >> 5;
@@ -134,9 +138,13 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int j = i / D;
       const int c = i - j * D;
       const int col = c0 + j;
-      const bool in = col < a.s;
-      ks[j * ldk + c] = in ? to_f(kg[col * a.k_st[2] + c]) : 0.f;
-      vs[j * D + c] = in ? to_f(vg[col * a.v_st[2] + c]) : 0.f;
+      ks[j * ldk + c] = col < a.s ? to_f(kg[col * a.k_st[2] + c]) : 0.f;
+    }
+    for (int i = tid; i < kBK * DV; i += kWarps * 32) {
+      const int j = i / DV;
+      const int c = i - j * DV;
+      const int col = c0 + j;
+      vs[j * DV + c] = col < a.s ? to_f(vg[col * a.v_st[2] + c]) : 0.f;
     }
     __syncthreads();
 
@@ -182,7 +190,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
         for (int i = 0; i < NI; ++i) {
           const int c = lane + 32 * i;
-          vv[jj][i] = c < D ? vs[(j + jj) * D + c] : 0.f;
+          vv[jj][i] = c < DV ? vs[(j + jj) * DV + c] : 0.f;
         }
       }
 #pragma unroll
@@ -204,14 +212,14 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int c = lane + 32 * i;
-      if (c < D) og[row * a.o_st[2] + c] = from_f<T>(acc[r][i] / den);
+      if (c < DV) og[row * a.o_st[2] + c] = from_f<T>(acc[r][i] / den);
     }
   }
 }
 
 template <typename T, int NI>
 int launch(const FlashArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.d);
+  const size_t smem = smem_bytes(a.d, a.dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_simt_kernel<T, NI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -223,7 +231,7 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 
 template <typename T>
 int dispatch(const FlashArgs& a, cudaStream_t stream) {
-  switch ((a.d + 31) / 32) {
+  switch ((a.dv + 31) / 32) {
     case 1: return launch<T, 1>(a, stream);
     case 2: return launch<T, 2>(a, stream);
     case 3: return launch<T, 3>(a, stream);
@@ -241,7 +249,8 @@ int dispatch(const FlashArgs& a, cudaStream_t stream) {
 extern "C" int repro_flash_attention_simt(const FlashArgs* args,
                                           cudaStream_t stream) {
   const FlashArgs& a = *args;
-  if (a.d < 8 || a.d > 256 || a.d % 8 || a.hkv < 1 || a.hq % a.hkv ||
+  if (a.d < 8 || a.d > 256 || a.d % 8 || a.dv < 8 || a.dv > 256 ||
+      a.dv % 8 || a.hkv < 1 || a.hq % a.hkv ||
       a.b < 1 || a.hq < 1 || a.b > 65535 || a.hq > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,7 +2,8 @@
 // kernel; flash_attention_wgmma.cu, the tensor-core kernel).  Mirrored field
 // for field by the ctypes Structure in
 // repro_torch/kernels/flash_attention/ops.py.  Strides are in elements, in
-// the order (b, h, s); the d stride is 1.
+// the order (b, h, s); the d stride is 1.  q and k are (B, H, S, d), v and
+// o (B, H, S, dv): MLA's values are narrower than its queries and keys.
 #pragma once
 
 #include <cstdint>
@@ -20,7 +21,8 @@ struct FlashArgs {
   int hq;
   int hkv;
   int s;
-  int d;
+  int d;         // width of q and k
+  int dv;        // width of v and o
   int window;
   float scale;
   float softcap;

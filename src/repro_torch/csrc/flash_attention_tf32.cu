@@ -1,5 +1,5 @@
 // B8 on Hopper's tensor cores for float32: causal GQA flash attention for
-// float32 q, k, v and out at D = 64 and 128, in three TF32 products per
+// float32 q, k, v and out at D = Dv = 64 and 128, in three TF32 products per
 // matrix product (3xTF32, "fast fp32"), with wgmma fed by TMA through an
 // mbarrier ring.
 //
@@ -8,8 +8,9 @@
 //   MusicGen-large's heads (64) when the model computes in float32 (every
 //   smoke_variant config does), and Qwen2-7B's width (128).  The bf16
 //   kernel (flash_attention_wgmma.cu) keeps bf16; the SIMT kernel
-//   (flash_attention.cu) keeps float32 at other D and bf16 at other D;
-//   kernels/flash_attention/ops.py chooses by dtype and D.  It computes
+//   (flash_attention.cu) keeps the other float32 and bf16 widths (a Dv
+//   other than D among them); kernels/flash_attention/ops.py chooses by
+//   dtype, D and Dv.  It computes
 //   what the others compute (causal mask, optional window and softcap,
 //   GQA, fp32 online softmax, a fully masked row gives 0) through the same
 //   (b, h, s) strides, to float32's accuracy.
@@ -605,8 +606,8 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 extern "C" int repro_flash_attention_tf32(const FlashArgs* args,
                                           cudaStream_t stream) {
   const FlashArgs& a = *args;
-  if (a.bf16 || a.hkv < 1 || a.hq % a.hkv || a.b < 1 || a.hq < 1 ||
-      a.b > 65535 || a.hq > 65535) {
+  if (a.bf16 || a.dv != a.d || a.hkv < 1 || a.hq % a.hkv || a.b < 1 ||
+      a.hq < 1 || a.b > 65535 || a.hq > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.s < 1) return 0;

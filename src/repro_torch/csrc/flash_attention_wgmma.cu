@@ -1,19 +1,23 @@
 // B8 on Hopper's tensor cores: causal GQA flash attention for bf16 q, k, v
-// and out at D = 64, 128 and 256, with wgmma fed by TMA through an mbarrier
-// ring.
+// and out at (D, Dv) = (64, 64), (128, 128), (256, 256) and (192, 128),
+// with wgmma fed by TMA through an mbarrier ring.  D is the width of q and
+// k, Dv that of v and out.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:86,
-//   flash_attention_pallas (body _flash_kernel), for bf16 at those D: the
-//   heads of MusicGen-large (64), Qwen2-7B (128) and Gemma2-2b (256).  The
-//   SIMT kernel (flash_attention.cu) keeps float32 and the other D;
-//   kernels/flash_attention/ops.py chooses between the two by dtype and D.
+//   flash_attention_pallas (body _flash_kernel), for bf16 at those widths:
+//   the heads of MusicGen-large (64), Qwen2-7B (128) and Gemma2-2b (256),
+//   and DeepSeek-V2's MLA prefill (q and k of 128 + 64, v of 128: the
+//   contract of repro.models.attention.flash_chunked, "Dv may differ from
+//   D", which the Pallas kernel itself does not take).  The SIMT kernel
+//   (flash_attention.cu) keeps float32 and the other widths;
+//   kernels/flash_attention/ops.py chooses by dtype, D and Dv.
 //   It computes what the SIMT kernel computes (causal mask, optional
 //   window and softcap, GQA, fp32 online softmax, a fully masked row gives
 //   0, output rounded to bf16), through the same (b, h, s) strides.
 //
-// Bound on the H100: operations.  Causal attention does 4 B Hq D pairs
-//   flops (QK^T and PV over the (row, col) pairs the mask keeps), at 989
-//   TFLOP/s in bf16: MusicGen's prefill shape (B 4, S 1500, 32 heads of 64)
+// Bound on the H100: operations.  Causal attention does 2 B Hq (D + Dv)
+//   pairs flops (QK^T and PV over the (row, col) pairs the mask keeps), at
+//   989 TFLOP/s in bf16: MusicGen's prefill shape (B 4, S 1500, 32 heads of 64)
 //   is 36.9 GFLOP, 0.037 ms, against 0.015 ms for the bytes of q, k, v and
 //   out.  What the design does about it: every product runs on the tensor
 //   cores (wgmma), the next K and V tiles arrive by TMA while the current
@@ -26,20 +30,23 @@
 // Design (TMA, wgmma, an mbarrier pipeline, warp specialisation):
 //   * Grid: one CTA per (query tile, head, batch), the query tiles with the
 //     most KV tiles launched first.  A query tile is 64 rows per consumer
-//     warpgroup: one consumer warpgroup at D = 64 and 128 (two CTAs per SM),
-//     two at D = 256 (one CTA per SM: its tiles fill shared memory).  One
+//     warpgroup: one consumer warpgroup at D = 64, 128 and (192, 128) (two
+//     CTAs per SM), two at D = 256 (one CTA per SM: its tiles fill shared
+//     memory).  One
 //     more warpgroup is the producer: one of its threads issues every TMA
 //     load; setmaxnreg drops it to 24 registers and raises the consumers to
 //     232 (240 with two consumer warpgroups).
 //   * Loads: the Q tile once, then K and V tiles of kBK = 64 keys through a
-//     ring of kStages = 2 stages.  Each stage has a full mbarrier for K and
+//     ring of kStages = 2 stages (a K tile D wide, a V tile Dv wide, each
+//     through a tensor map of its own width).  Each stage has a full mbarrier for K and
 //     one for V, which TMA completes on the stage's byte count, and an empty
 //     mbarrier on which each consumer warp arrives once its warpgroup's
 //     wgmma have read the stage.  A tile is one box of 64 rows x 64 columns (128 bytes)
 //     per 64 columns of D, in 128-byte swizzle: the layout the wgmma
 //     descriptors name.  Shared memory: Q 8 KB x (D / 64) per consumer
-//     warpgroup, K and V 8 KB x (D / 64) per stage each: 40 KB at D = 64,
-//     80 KB at 128, 192 KB at 256, plus 1 KB of alignment and the barriers.
+//     warpgroup, K 8 KB x (D / 64) and V 8 KB x (Dv / 64) per stage: 40 KB
+//     at D = 64, 80 KB at 128, 192 KB at 256, 104 KB at (192, 128), plus
+//     1 KB of alignment and the barriers.
 //   * Tensor maps: 4-D over the strided view (D, S, H, B), encoded on the
 //     host with cuTensorMapEncodeTiled.  The library gets that driver
 //     function at run time through cudaGetDriverEntryPoint(ByVersion), so
@@ -58,7 +65,7 @@
 //     within the quad that holds a row; exp(x - max) as one FFMA and one
 //     ex2; fp32 running max and denominator, the latter summed from fp32 p.
 //   * O += P V with P split in two: p_hi = bf16(p), p_lo = bf16(p - p_hi),
-//     two register-A wgmma m64nDk16 against the same V tile (B MN-major,
+//     two register-A wgmma m64nDvk16 against the same V tile (B MN-major,
 //     through the instruction's transpose bit) into one fp32 accumulator.
 //     p_hi + p_lo carries p to about 2^-16 relative.  One bf16 P (2^-9)
 //     fails chip_smoke phase (h)'s check against the plain version, which
@@ -85,19 +92,23 @@ constexpr int kProducerRegs = 24;
 constexpr float kNeg = -1e30f;           // the JAX kernel's _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
-// One instantiation: head width and consumer warpgroups, from which the
-// CTAs per SM (the launch bound) and the consumers' registers follow.
-template <int D_, int NWG_>
+// One instantiation: the q / k width, the v / out width and the consumer
+// warpgroups, from which the CTAs per SM (the launch bound) and the
+// consumers' registers follow.
+template <int D_, int DV_, int NWG_>
 struct Cfg {
   static constexpr int D = D_;
+  static constexpr int DV = DV_;
   static constexpr int NWG = NWG_;
   static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
   static constexpr int kConsumerRegs = NWG == 1 ? 232 : 240;
   static constexpr int kBlocks = D / 64;           // boxes across D
-  static constexpr int kTileBytes = kBlocks * kBoxBytes;   // one K or V tile
+  static constexpr int kVBlocks = DV / 64;         // boxes across Dv
+  static constexpr int kTileBytes = kBlocks * kBoxBytes;    // a Q or K tile
+  static constexpr int kVTileBytes = kVBlocks * kBoxBytes;  // a V tile
   static constexpr int kQBytes = NWG * kTileBytes;
   static constexpr int kBars = 1 + 3 * kStages;    // q; k_full, v_full, empty
-  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kSmem = kQBytes + kStages * (kTileBytes + kVTileBytes);
   static constexpr int kSmemAlloc = 1024 + kSmem + 8 * kBars;
   static constexpr int kThreads = (NWG + 1) * 128;
 };
@@ -229,12 +240,12 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "r"(scale_d));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64) {
+  if constexpr (DV == 64) {
     wgmma_rs_n64(o, a, db, 1);
-  } else if constexpr (D == 128) {
+  } else if constexpr (DV == 128) {
     wgmma_rs_n128(o, a, db, 1);
   } else {
     wgmma_rs_n256(o, a, db, 1);
@@ -306,10 +317,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
     for (int c = 0; c < C::kBlocks; ++c)
       tma_load(sk + st * C::kTileBytes + c * kBoxBytes, tk, bars.k_full(st),
                c * kBox, c0, hk, bb);
-    mbar_expect_tx(bars.v_full(st), C::kTileBytes);
+    mbar_expect_tx(bars.v_full(st), C::kVTileBytes);
 #pragma unroll
-    for (int c = 0; c < C::kBlocks; ++c)
-      tma_load(sv + st * C::kTileBytes + c * kBoxBytes, tv, bars.v_full(st),
+    for (int c = 0; c < C::kVBlocks; ++c)
+      tma_load(sv + st * C::kVTileBytes + c * kBoxBytes, tv, bars.v_full(st),
                c * kBox, c0, hk, bb);
   }
 }
@@ -319,7 +330,7 @@ template <class C>
 __device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
                                         uint32_t sk, uint32_t sv, Bars bars,
                                         Walk w, int wg) {
-  constexpr int D = C::D;
+  constexpr int DV = C::DV;
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
   const int r_lo = w.q0 + wg * 64;
@@ -330,9 +341,9 @@ __device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
   const int colq = (lane % 4) * 2;    // the thread's first column of each 8
   const uint32_t q_base = sq + wg * C::kTileBytes;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
   mbar_wait(bars.q(), 0);
 
@@ -433,7 +444,7 @@ __device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
           split_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
                        p_hi[kk][r], p_lo[kk][r]);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= corr0;
         o[4 * j + 1] *= corr0;
         o[4 * j + 2] *= corr1;
@@ -441,19 +452,19 @@ __device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
       }
 
       mbar_wait(bars.v_full(st), parity);
-      const uint32_t v_base = sv + st * C::kTileBytes;
+      const uint32_t v_base = sv + st * C::kVTileBytes;
       fence_regs(o);
       fence_regs(p_hi);
       fence_regs(p_lo);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(o, p_hi[kk], sw128_desc(v_base + kk * 16 * 128, kBoxBytes,
-                                            1024));
+        wgmma_pv<DV>(o, p_hi[kk], sw128_desc(v_base + kk * 16 * 128,
+                                             kBoxBytes, 1024));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(o, p_lo[kk], sw128_desc(v_base + kk * 16 * 128, kBoxBytes,
-                                            1024));
+        wgmma_pv<DV>(o, p_lo[kk], sw128_desc(v_base + kk * 16 * 128,
+                                             kBoxBytes, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -476,7 +487,7 @@ __device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) +
                       blockIdx.z * a.o_st[0] + blockIdx.y * a.o_st[1];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     const int col = 8 * j + colq;
     if (row0 < a.s)
       *reinterpret_cast<__nv_bfloat162*>(og + row0 * a.o_st[2] + col) =
@@ -499,7 +510,7 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sk = sq + C::kQBytes;
   const uint32_t sv = sk + kStages * C::kTileBytes;
-  const Bars bars{sv + kStages * C::kTileBytes};
+  const Bars bars{sv + kStages * C::kVTileBytes};
   const Walk w = walk(a, 64 * NWG);
 
   if (threadIdx.x == 0) {
@@ -529,7 +540,7 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
 
 template <class C>
 int launch(const FlashArgs& a, cudaStream_t stream) {
-  constexpr int D = C::D, NWG = C::NWG;
+  constexpr int D = C::D, DV = C::DV, NWG = C::NWG;
   auto kernel = flash_wgmma_kernel<C>;
   // setmaxnreg.inc waits until the producer's released registers cover it:
   // refuse to launch a build whose register count would never let it
@@ -552,7 +563,7 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
   if (!err)
     err = make_map(&tk, a.k, a.k_st, D, a.s, a.hkv, a.b, kBf16, 2, kBox);
   if (!err)
-    err = make_map(&tv, a.v, a.v_st, D, a.s, a.hkv, a.b, kBf16, 2, kBox);
+    err = make_map(&tv, a.v, a.v_st, DV, a.s, a.hkv, a.b, kBf16, 2, kBox);
   if (err) return err;
   const dim3 grid((a.s + 64 * NWG - 1) / (64 * NWG), a.hq, a.b);
   kernel<<<grid, C::kThreads, C::kSmemAlloc, stream>>>(tq, tk, tv, a);
@@ -569,10 +580,9 @@ extern "C" int repro_flash_attention_wgmma(const FlashArgs* args,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.s < 1) return 0;
-  switch (a.d) {
-    case 64: return launch<Cfg<64, 1>>(a, stream);
-    case 128: return launch<Cfg<128, 1>>(a, stream);
-    case 256: return launch<Cfg<256, 2>>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (a.d == 64 && a.dv == 64) return launch<Cfg<64, 64, 1>>(a, stream);
+  if (a.d == 128 && a.dv == 128) return launch<Cfg<128, 128, 1>>(a, stream);
+  if (a.d == 256 && a.dv == 256) return launch<Cfg<256, 256, 2>>(a, stream);
+  if (a.d == 192 && a.dv == 128) return launch<Cfg<192, 128, 1>>(a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,15 +1,18 @@
 """Causal GQA flash attention (B8): the plain version on the CPU, one of
 three CUDA kernels on the card.
 
-``kernel_route(dtype, d)`` chooses the kernel by dtype and D alone:
-bfloat16 at D in ``WGMMA_D`` runs the tensor-core kernel of
-``csrc/flash_attention_wgmma.cu`` (``launch_wgmma``, counted under
-``LAUNCHES["flash_attention_wgmma"]``); float32 at D in ``TF32_D`` its
-float32 counterpart in three TF32 products, ``csrc/flash_attention_tf32.cu``
-(``launch_tf32``, ``LAUNCHES["flash_attention_tf32"]``); every other dtype
-and D the SIMT kernel of ``csrc/flash_attention.cu`` (``launch_simt``,
-``LAUNCHES["flash_attention_simt"]``).  None stands in for another: a
-tensor that the chosen kernel does not take raises.
+q and k are (B, H, S, D), v and out (B, H, S, Dv): MLA's values are
+narrower than its queries and keys.  ``kernel_route(dtype, d, dv)``
+chooses the kernel by dtype and the two widths: bfloat16 at a (D, Dv) in
+``WGMMA_DV`` runs the tensor-core kernel of ``csrc/flash_attention_wgmma.cu``
+(``launch_wgmma``, counted under ``LAUNCHES["flash_attention_wgmma"]``);
+float32 at D = Dv in ``TF32_D`` its float32 counterpart in three TF32
+products, ``csrc/flash_attention_tf32.cu`` (``launch_tf32``,
+``LAUNCHES["flash_attention_tf32"]``); every other dtype and pair the SIMT
+kernel of ``csrc/flash_attention.cu`` (``launch_simt``,
+``LAUNCHES["flash_attention_simt"]``), which takes D and Dv from 8 to 256
+in steps of 8.  None stands in for another: a tensor that the chosen
+kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -23,7 +26,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_D = (64, 128, 256)     # MusicGen-large, Qwen2-7B, Gemma2-2b
-TF32_D = (64, 128)           # MusicGen-large, Qwen2-7B
+# the (D, Dv) pairs of the tensor-core kernel: D = Dv in WGMMA_D, and
+# DeepSeek-V2's MLA prefill (q and k of 128 + 64, v of 128)
+WGMMA_DV = tuple((d, d) for d in WGMMA_D) + ((192, 128),)
+TF32_D = (64, 128)           # MusicGen-large, Qwen2-7B (D = Dv)
 # TMA reads q, k and v by 16-byte strides from 16-byte aligned addresses;
 # out is held to the same
 _TMA_ALIGN = 16
@@ -36,16 +42,18 @@ class _FlashArgs(ctypes.Structure):
         ("q_st", _I64 * 3), ("k_st", _I64 * 3), ("v_st", _I64 * 3),
         ("o_st", _I64 * 3),
         ("b", _I), ("hq", _I), ("hkv", _I), ("s", _I), ("d", _I),
-        ("window", _I), ("scale", _F), ("softcap", _F), ("bf16", _I),
+        ("dv", _I), ("window", _I), ("scale", _F), ("softcap", _F),
+        ("bf16", _I),
     ]
 
 
-def kernel_route(dtype: torch.dtype, d: int) -> str:
+def kernel_route(dtype: torch.dtype, d: int, dv: int | None = None) -> str:
     """'wgmma', 'tf32' or 'simt': the kernel that a CUDA tensor of this
-    dtype and head width D launches."""
-    if dtype == torch.bfloat16 and d in WGMMA_D:
+    dtype, q / k width D and v width Dv (default D) launches."""
+    dv = d if dv is None else dv
+    if dtype == torch.bfloat16 and (d, dv) in WGMMA_DV:
         return "wgmma"
-    if dtype == torch.float32 and d in TF32_D:
+    if dtype == torch.float32 and d == dv and d in TF32_D:
         return "tf32"
     return "simt"
 
@@ -53,12 +61,13 @@ def kernel_route(dtype: torch.dtype, d: int) -> str:
 def _check_common(q, k, v, out):
     req = _build.require
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, dv = k.shape[1], v.shape[3]
     req(q.dtype in _DTYPES, f"q must be float32 or bfloat16, got {q.dtype}")
-    for name, t, h in (("k", k, hkv), ("v", v, hkv), ("out", out, hq)):
+    for name, t, h, w in (("k", k, hkv, d), ("v", v, hkv, dv),
+                          ("out", out, hq, dv)):
         req(t.dtype == q.dtype, f"{name} must have q's dtype {q.dtype}")
-        req(tuple(t.shape) == (b, h, s, d),
-            f"{name} must be ({b}, {h}, {s}, {d}), got {tuple(t.shape)}")
+        req(tuple(t.shape) == (b, h, s, w),
+            f"{name} must be ({b}, {h}, {s}, {w}), got {tuple(t.shape)}")
     req(hkv >= 1 and hq % hkv == 0, f"Hq = {hq} must be a multiple of Hkv = {hkv}")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         req(t.stride(3) == 1, f"{name} must have a unit stride over D")
@@ -68,7 +77,7 @@ def _run(entry: str, q, k, v, out, scale, softcap, window) -> None:
     b, hq, s, d = q.shape
     a = _FlashArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
                    o=out.data_ptr(), b=b, hq=hq, hkv=k.shape[1], s=s, d=d,
-                   window=int(window), scale=float(scale),
+                   dv=v.shape[3], window=int(window), scale=float(scale),
                    softcap=float(softcap), bf16=_DTYPES[q.dtype])
     for field, t in (("q_st", q), ("k_st", k), ("v_st", v), ("o_st", out)):
         getattr(a, field)[:] = t.stride()[:3]
@@ -79,14 +88,15 @@ def _run(entry: str, q, k, v, out, scale, softcap, window) -> None:
 
 def launch_simt(q, k, v, out, *, scale: float, softcap: float = 0.0,
                 window: int = 0) -> None:
-    """B8's SIMT kernel into ``out``: float32 or bfloat16, D from 8 to 256
-    in steps of 8.  All four are (B, H, S, D) views on one card, any
-    (b, h, s) strides with a unit d stride: q and out (B, Hq, S, D), k and
-    v (B, Hkv, S, D)."""
+    """B8's SIMT kernel into ``out``: float32 or bfloat16, D and Dv each
+    from 8 to 256 in steps of 8.  All four are (B, H, S, width) views on
+    one card, any (b, h, s) strides with a unit last stride: q (B, Hq, S,
+    D), k (B, Hkv, S, D), v (B, Hkv, S, Dv) and out (B, Hq, S, Dv)."""
     _check_common(q, k, v, out)
-    d = q.shape[3]
-    _build.require(8 <= d <= 256 and d % 8 == 0,
-                   f"D = {d}: the SIMT kernel takes 8..256 in steps of 8")
+    for name, w in (("D", q.shape[3]), ("Dv", v.shape[3])):
+        _build.require(8 <= w <= 256 and w % 8 == 0,
+                       f"{name} = {w}: the SIMT kernel takes 8..256 in "
+                       "steps of 8")
     _run("repro_flash_attention_simt", q, k, v, out, scale, softcap, window)
     LAUNCHES["flash_attention_simt"] += 1
 
@@ -106,15 +116,17 @@ def _check_tma(q, k, v, out) -> None:
 
 def launch_wgmma(q, k, v, out, *, scale: float, softcap: float = 0.0,
                  window: int = 0) -> None:
-    """B8's tensor-core kernel into ``out``: bfloat16, D in ``WGMMA_D``,
-    views as for ``launch_simt`` whose (b, h, s) strides are multiples of 16
-    bytes and whose data start on 16 bytes (what TMA reads)."""
+    """B8's tensor-core kernel into ``out``: bfloat16, (D, Dv) in
+    ``WGMMA_DV``, views as for ``launch_simt`` whose (b, h, s) strides are
+    multiples of 16 bytes and whose data start on 16 bytes (what TMA
+    reads)."""
     _check_common(q, k, v, out)
     req = _build.require
-    d = q.shape[3]
+    d, dv = q.shape[3], v.shape[3]
     req(q.dtype == torch.bfloat16,
         f"the tensor-core kernel takes bfloat16, got {q.dtype}")
-    req(d in WGMMA_D, f"D = {d}: the tensor-core kernel takes {WGMMA_D}")
+    req((d, dv) in WGMMA_DV, f"(D, Dv) = ({d}, {dv}): the tensor-core "
+        f"kernel takes {WGMMA_DV}")
     _check_tma(q, k, v, out)
     _run("repro_flash_attention_wgmma", q, k, v, out, scale, softcap, window)
     LAUNCHES["flash_attention_wgmma"] += 1
@@ -122,15 +134,16 @@ def launch_wgmma(q, k, v, out, *, scale: float, softcap: float = 0.0,
 
 def launch_tf32(q, k, v, out, *, scale: float, softcap: float = 0.0,
                 window: int = 0) -> None:
-    """B8's float32 tensor-core kernel (3xTF32) into ``out``: float32, D in
-    ``TF32_D``, views with TMA's strides and alignment as for
+    """B8's float32 tensor-core kernel (3xTF32) into ``out``: float32, D =
+    Dv in ``TF32_D``, views with TMA's strides and alignment as for
     ``launch_wgmma``."""
     _check_common(q, k, v, out)
     req = _build.require
-    d = q.shape[3]
+    d, dv = q.shape[3], v.shape[3]
     req(q.dtype == torch.float32,
         f"the float32 tensor-core kernel takes float32, got {q.dtype}")
-    req(d in TF32_D, f"D = {d}: the float32 tensor-core kernel takes {TF32_D}")
+    req(d == dv and d in TF32_D, f"(D, Dv) = ({d}, {dv}): the float32 "
+        f"tensor-core kernel takes D = Dv in {TF32_D}")
     _check_tma(q, k, v, out)
     _run("repro_flash_attention_tf32", q, k, v, out, scale, softcap, window)
     LAUNCHES["flash_attention_tf32"] += 1
@@ -139,21 +152,23 @@ def launch_tf32(q, k, v, out, *, scale: float, softcap: float = 0.0,
 def launch(q, k, v, out, *, scale: float, softcap: float = 0.0,
            window: int = 0) -> None:
     """Run B8 into ``out`` through the kernel ``kernel_route`` names for
-    q's dtype and D."""
+    q's dtype, D and v's Dv."""
     fn = {"wgmma": launch_wgmma, "tf32": launch_tf32,
-          "simt": launch_simt}[kernel_route(q.dtype, q.shape[3])]
+          "simt": launch_simt}[kernel_route(q.dtype, q.shape[3], v.shape[3])]
     fn(q, k, v, out, scale=scale, softcap=softcap, window=window)
 
 
 def flash_attention(q, k, v, *, scale: float | None = None,
                     softcap: float = 0.0, window: int = 0):
-    """(B, Hq, S, D) x (B, Hkv, S, D)^2 -> (B, Hq, S, D) causal GQA
-    attention in q's dtype, as ``repro.kernels.flash_attention.ops``."""
+    """q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv) -> (B, Hq, S,
+    Dv) causal GQA attention in q's dtype, as
+    ``repro.kernels.flash_attention.ops`` (which takes Dv = D only)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _build.kernel_device(q, k, v) == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, softcap=softcap,
                                    window=window)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((*q.shape[:3], v.shape[3]), dtype=q.dtype,
+                      device=q.device)
     launch(q, k, v, out, scale=scale, softcap=softcap, window=window)
     return out

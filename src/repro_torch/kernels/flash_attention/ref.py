@@ -12,13 +12,13 @@ def flash_attention_ref(q, k, v, *, scale: float | None = None,
     """Materialised-softmax causal attention.
 
     Args:
-      q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0 (query
-        head h reads KV head h // (Hq // Hkv)).
+      q: (B, Hq, S, D); k: (B, Hkv, S, D); v: (B, Hkv, S, Dv) with Hq %
+        Hkv == 0 (query head h reads KV head h // (Hq // Hkv)).
       scale: logit scale (default D^-0.5).
       softcap: if > 0, logits are soft-capped ``cap * tanh(s / cap)``.
       window: if > 0, each row sees the last ``window`` positions
         (itself included).
-    Returns (B, Hq, S, D) in q's dtype; scores and sums in float32.
+    Returns (B, Hq, S, Dv) in q's dtype; scores and sums in float32.
     """
     S, D = q.shape[2], q.shape[3]
     group = q.shape[1] // k.shape[1]
@@ -64,7 +64,7 @@ def flash_attention_split_p_ref(q, k, v, *, scale: float | None = None,
     rows = torch.arange(S, device=q.device)[:, None]
     m = torch.full((B, Hq, S, 1), _NEG, device=q.device)
     l = torch.zeros((B, Hq, S, 1), device=q.device)
-    acc = torch.zeros((B, Hq, S, D), device=q.device)
+    acc = torch.zeros((B, Hq, S, v.shape[3]), device=q.device)
     for c0 in range(0, S, block_k):
         kc, vc = k[:, :, c0:c0 + block_k], v[:, :, c0:c0 + block_k]
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * scale
@@ -142,7 +142,7 @@ def flash_attention_tf32_ref(q, k, v, *, scale: float | None = None,
     rows = torch.arange(S, device=q.device)[:, None]
     m = torch.full((B, Hq, S, 1), _NEG, device=q.device)
     l = torch.zeros((B, Hq, S, 1), device=q.device)
-    acc = torch.zeros((B, Hq, S, D), device=q.device)
+    acc = torch.zeros((B, Hq, S, v.shape[3]), device=q.device)
     for c0 in range(0, S, block_k):
         kc, vc = k[:, :, c0:c0 + block_k], v[:, :, c0:c0 + block_k]
         s = _tf32_product(qf, kc, terms) * scale

@@ -1,11 +1,13 @@
-"""Causal GQA attention (port of ``repro.models.attention``:
-``flash_chunked``, ``decode_attention``, ``init_gqa``, ``gqa_apply``).
+"""Causal GQA attention and MLA (port of ``repro.models.attention``:
+``flash_chunked``, ``decode_attention``, ``init_gqa``, ``gqa_apply``,
+``init_mla``, ``mla_apply``).
 
-``flash_chunked`` takes the model's (B, S, H, D) layout.  On a CUDA tensor
-it launches B8 (``kernels.flash_attention``: the tensor-core kernel for
-bf16 at D 64, 128 and 256, its 3xTF32 counterpart for float32 at D 64 and
-128, the SIMT kernel otherwise) through strides,
-with no transpose copy; on a CPU tensor it runs
+``flash_chunked`` takes the model's (B, S, H, D) layout, with values of
+their own width Dv (MLA's 128 against its queries' and keys' 192).  On a
+CUDA tensor it launches B8 (``kernels.flash_attention``: the tensor-core
+kernel for bf16 at D = Dv 64, 128 and 256 and at (192, 128), its 3xTF32
+counterpart for float32 at D = Dv 64 and 128, the SIMT kernel otherwise)
+through strides, with no transpose copy; on a CPU tensor it runs
 ``flash_chunked_ref``, the plain online softmax over KV chunks of the JAX
 function, which also runs on the card as B8's plain version.
 
@@ -16,7 +18,12 @@ the cache, no Pallas kernel there).  ``cur_len`` is a 0-d integer tensor on
 the model's device: the write index, RoPE's position and the masks are
 tensors, so a step makes no host sync.
 
-Not ported yet (ROADMAP A8): MLA (``init_mla``, ``mla_apply``).
+MLA (DeepSeek-V2) prefills in the non-absorbed form, per-head K and V
+from the latent through ``flash_chunked`` (B8 at D 192, Dv 128 on the
+card), and decodes in the absorbed form: the cache holds only the latent
+and the shared RoPE key, written in place at ``cur_len - 1``, and the
+scores contract the query folded through ``w_uk`` against the latent in
+float32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from repro_torch.core import threefry
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
-                                       matmul_cd)
+                                       matmul_cd, proj_heads, rms_norm)
 
 _NEG = -1e30
 
@@ -90,23 +97,22 @@ def flash_chunked(q, k, v, *, chunk_q: int = 0, chunk_k: int = 512,
                   scale: float, cap: float = 0.0, window: int = 0,
                   q_offset=0, score_budget_bytes: int = 192 * 2 ** 20,
                   seq_shards: int = 1):
-    """Causal GQA attention in the (B, S, H, D) layout: B8 on the card,
-    ``flash_chunked_ref`` on the CPU (arguments as there).  B8 takes
-    self-attention only: ``Dv != D`` (MLA) and a nonzero ``q_offset``
-    raise ``NotImplementedError`` on the card."""
+    """Causal GQA attention in the (B, S, H, D) layout, values (B, S, Hkv,
+    Dv): B8 on the card, ``flash_chunked_ref`` on the CPU (arguments as
+    there).  B8 takes self-attention only: a nonzero ``q_offset`` raises
+    ``NotImplementedError`` on the card, and a (D, Dv) that no kernel of
+    B8 takes raises ``ValueError`` before any launch."""
     if _build.kernel_device(q, k, v) == "cpu":
         return flash_chunked_ref(
             q, k, v, chunk_q=chunk_q, chunk_k=chunk_k, scale=scale, cap=cap,
             window=window, q_offset=q_offset,
             score_budget_bytes=score_budget_bytes, seq_shards=seq_shards)
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError("B8 takes Dv == D only (MLA's latent "
-                                  "values are not ported)")
     if (torch.is_tensor(q_offset) or q_offset != 0) or k.shape[1] != q.shape[1]:
         raise NotImplementedError("B8 takes causal self-attention from "
                                   "position 0 (q_offset = 0, Sq == Sk)")
-    B, S, Hq, D = q.shape
-    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    B, S, Hq, _ = q.shape
+    out = torch.empty((B, S, Hq, v.shape[-1]), dtype=q.dtype,
+                      device=q.device)
     flash_ops.launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                      out.transpose(1, 2), scale=scale, softcap=cap,
                      window=window)
@@ -160,11 +166,20 @@ def init_gqa(key, cfg, *, device=None):
     return p
 
 
-def _proj(h, w, cd):
-    """einsum('bsd,dhk->bshk') as one matmul in the compute dtype."""
-    D = w.shape[0]
-    return matmul_cd(h, w.to(cd).reshape(D, -1)).reshape(*h.shape[:2],
-                                                          *w.shape[1:])
+def cache_slot(cur_len, smax: int):
+    """The cache slot a decode step writes: ``cur_len - 1`` clamped to
+    [0, smax - 1] (as ``dynamic_update_slice`` clamps), a (1,) int64
+    tensor on cur_len's device for ``index_copy_``; no host sync."""
+    return (cur_len - 1).reshape(1).clamp(0, smax - 1).long()
+
+
+def _default_positions(h, cur_len):
+    """(1, S) prefill positions, or (B, 1) at ``cur_len - 1`` in decode."""
+    B, S = h.shape[:2]
+    if cur_len is None:
+        return torch.arange(S, device=h.device)[None, :]
+    return (cur_len - 1) * torch.ones((B, 1), dtype=torch.int32,
+                                      device=h.device)
 
 
 def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
@@ -183,17 +198,15 @@ def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
     Dh = cfg.resolved_head_dim
     cd = dtype_of(cfg.compute_dtype)
     h = h.to(cd)
-    q = _proj(h, p["wq"], cd)
-    k = _proj(h, p["wk"], cd)
-    v = _proj(h, p["wv"], cd)
+    q = proj_heads(h, p["wq"], cd)
+    k = proj_heads(h, p["wk"], cd)
+    v = proj_heads(h, p["wv"], cd)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
     if positions is None:
-        positions = torch.arange(S, device=h.device)[None, :] \
-            if cur_len is None else (cur_len - 1) * torch.ones(
-                (B, 1), dtype=torch.int32, device=h.device)
+        positions = _default_positions(h, cur_len)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     scale = Dh ** -0.5
@@ -202,8 +215,7 @@ def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
         out = attention(q, k, v, chunk_k=min(cfg.attn_chunk_k, S),
                         scale=scale, cap=cfg.attn_softcap, window=window)
     else:
-        smax = cache["k"].shape[1]
-        idx = (cur_len - 1).reshape(1).clamp(0, smax - 1).long()
+        idx = cache_slot(cur_len, cache["k"].shape[1])
         cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
         out = decode_attention(q, cache["k"], cache["v"], cur_len,
@@ -212,3 +224,91 @@ def gqa_apply(p, h, cfg, *, window: int = 0, positions=None, cache=None,
     wo = p["wo"].to(cd)
     out = matmul_cd(out.to(cd).reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
     return out, cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent-compressed KV with a decoupled RoPE head
+
+
+def init_mla(key, cfg, *, device=None):
+    D, H = cfg.d_model, cfg.n_heads
+    L, dn, dr, dv = (cfg.kv_lora_rank, cfg.q_nope_dim, cfg.q_rope_dim,
+                     cfg.v_head_dim)
+    dt = dtype_of(cfg.param_dtype)
+    ks = threefry.split(key, 5)
+    return {
+        "wq": dense_init(ks[0], (D, H, dn + dr), dt, fan_in=D, device=device),
+        "w_dkv": dense_init(ks[1], (D, L + dr), dt, fan_in=D, device=device),
+        "kv_norm": torch.zeros((L,), dtype=dt, device=device) + 1.0,
+        "w_uk": dense_init(ks[2], (L, H, dn), dt, fan_in=L, device=device),
+        "w_uv": dense_init(ks[3], (L, H, dv), dt, fan_in=L, device=device),
+        "wo": dense_init(ks[4], (H, dv, D), dt, fan_in=H * dv, device=device),
+    }
+
+
+def _per_head(x, w, cd):
+    """x (B, S, H, n) against w (H, n, m), one product a head in the
+    compute dtype: (B, S, H, m)."""
+    B, S, H, n = x.shape
+    out = matmul_cd(x.to(cd).permute(2, 0, 1, 3).reshape(H, B * S, n),
+                    w.to(cd))                               # (H, B S, m)
+    return out.reshape(H, B, S, -1).permute(1, 2, 0, 3)
+
+
+def mla_apply(p, h, cfg, *, positions=None, cache=None, cur_len=None,
+              window: int = 0, attention=flash_chunked):
+    """h: (B, S, D) -> ((B, S, D), new_cache).
+
+    Without a cache: the non-absorbed form, per-head K (``w_uk``'s 128
+    columns and the shared RoPE key's 64) and V (``w_uv``'s 128) from the
+    latent through ``attention`` (B8 at D 192, Dv 128 on the card).  With
+    ``cache`` (dict ``latent`` (B, Smax, L), ``k_rope`` (B, Smax, dr)) and
+    ``cur_len``: one decode token in the absorbed form, the latent pair
+    written in place at ``cur_len - 1`` clamped, scores of the query
+    folded through ``w_uk`` against the latent in float32; the cache dict
+    is returned.
+    """
+    B, S, D = h.shape
+    L, dn, dr = cfg.kv_lora_rank, cfg.q_nope_dim, cfg.q_rope_dim
+    cd = dtype_of(cfg.compute_dtype)
+    h = h.to(cd)
+    if positions is None:
+        positions = _default_positions(h, cur_len)
+
+    q = proj_heads(h, p["wq"], cd)                          # (B, S, H, dn+dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv = matmul_cd(h, p["w_dkv"].to(cd))                   # (B, S, L+dr)
+    latent = rms_norm(ckv[..., :L], p["kv_norm"])
+    k_rope = apply_rope(ckv[..., L:], positions, cfg.rope_theta)  # (B,S,dr)
+    scale = (dn + dr) ** -0.5
+    wo = p["wo"].to(cd)
+
+    if cache is not None:
+        # einsum('bshn,lhn->bshl'): the query folded through w_uk
+        q_eff = _per_head(q_nope, p["w_uk"].permute(1, 2, 0), cd)
+        idx = cache_slot(cur_len, cache["latent"].shape[1])
+        cache["latent"].index_copy_(1, idx,
+                                    latent.to(cache["latent"].dtype))
+        cache["k_rope"].index_copy_(1, idx,
+                                    k_rope.to(cache["k_rope"].dtype))
+        lat = cache["latent"].float()
+        s = (torch.einsum("bshl,btl->bhst", q_eff.float(), lat)
+             + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                            cache["k_rope"].float())) * scale
+        pos = torch.arange(lat.shape[1], device=h.device)[None, :]
+        s = torch.where((pos < cur_len)[:, None, None, :], s, _NEG)
+        w = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btl->bshl", w, lat)      # (B, S, H, L)
+        out = _per_head(o_lat, p["w_uv"].permute(1, 0, 2), cd)  # (B,S,H,dv)
+        return matmul_cd(out.reshape(B, S, -1), wo.reshape(-1, D)), cache
+
+    k_nope = proj_heads(latent, p["w_uk"], cd)              # (B, S, H, dn)
+    v = proj_heads(latent, p["w_uv"], cd)                   # (B, S, H, dv)
+    H = k_nope.shape[2]
+    kcat = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                     dim=-1)
+    qcat = torch.cat([q_nope, q_rope], dim=-1)
+    o = attention(qcat, kcat, v, chunk_k=min(cfg.attn_chunk_k, S),
+                  scale=scale, cap=0.0, window=window)
+    return matmul_cd(o.reshape(B, S, -1), wo.reshape(-1, D)), None

@@ -17,6 +17,7 @@ one device (no sharding constraints) and only the forward pass.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -45,6 +46,13 @@ def matmul_cd(a, b):
     if a.dtype == torch.bfloat16 and a.device.type == "cpu":
         return (a.float() @ b.float()).to(a.dtype)
     return a @ b
+
+
+def proj_heads(h, w, cd):
+    """einsum('bsd,dhk->bshk') as one matmul in the compute dtype: h (B,
+    S, d) against w (d, H, k)."""
+    return matmul_cd(h, w.to(cd).reshape(w.shape[0], -1)).reshape(
+        *h.shape[:2], *w.shape[1:])
 
 
 # --------------------------------------------------------------------------
@@ -115,12 +123,34 @@ def apply_rope(x, positions, theta: float = 10000.0):
 # Initialisers (threefry keys: see core.threefry)
 
 
+# elements drawn at a time: a draw of more (DeepSeek-V2's expert stacks
+# hold 1.26 G each) is made in pieces of this many, so that threefry's
+# int64 temporaries stay near 0.5 GB each instead of 10 GB
+DRAW_CHUNK = 1 << 26
+
+
+def _normal_init(key, shape, dtype, scale, device):
+    """``(normal(key, shape) [* scale]).to(dtype)``, drawn in pieces of
+    ``DRAW_CHUNK`` flat elements: the same numbers, element for element."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n <= DRAW_CHUNK:
+        x = threefry.normal(key, shape, device=device)
+        return (x if scale is None else x * scale).to(dtype)
+    dev = torch.as_tensor(key).device if device is None else device
+    out = torch.empty(n, dtype=dtype, device=dev)
+    for a in range(0, n, DRAW_CHUNK):
+        m = min(DRAW_CHUNK, n - a)
+        x = threefry.normal(key, (m,), device=dev, start=a)
+        out[a:a + m] = (x if scale is None else x * scale).to(dtype)
+    return out.reshape(shape)
+
+
 def dense_init(key, shape, dtype, fan_in: Optional[int] = None, *,
                device=None):
     fan_in = fan_in if fan_in is not None else shape[0]
-    std = fan_in ** -0.5
-    return (threefry.normal(key, tuple(shape), device=device) * std).to(dtype)
+    return _normal_init(key, shape, dtype, fan_in ** -0.5, device)
 
 
 def embed_init(key, shape, dtype, *, device=None):
-    return threefry.normal(key, tuple(shape), device=device).to(dtype)
+    return _normal_init(key, shape, dtype, None, device)

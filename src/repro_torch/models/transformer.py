@@ -1,15 +1,19 @@
 """LMModel (port of ``repro.models.transformer``): embedding, the layer
 stack, the final norm and the head -- ``hidden_states`` and the serving
-path (``init_cache``, ``serve_step``) -- for these families:
+path (``init_cache``, ``serve_step``) -- for every family:
 
   dense / vlm / audio : dense GQA blocks
   gemma2              : (local, global) pairs, sandwich norms
-  moe                 : MoE blocks with GQA attention (OLMoE), with an
-                        optional dense first layer
+  moe                 : MoE blocks with GQA (OLMoE) or MLA (DeepSeek-V2)
+                        attention, with an optional dense first layer
+  ssm                 : Mamba2 blocks
+  hybrid              : Zamba2 super-blocks (``shared_attn_every`` Mamba2
+                        blocks, then the one shared dense block)
 
 The JAX model stacks its layers (a leading L dim) and applies them with
 ``lax.scan``; the port keeps one parameter dict per layer, and one cache
-dict per layer, and runs them in a Python loop.  ``init_params`` draws
+dict per layer, and runs them in a Python loop (a Zamba2 super-block's
+Mamba2 blocks, stacked again in JAX, are a list).  ``init_params`` draws
 what JAX's ``init_params(key)`` draws: ``split(key, 8)``, then one key per
 layer from ``split(ks[1], L)`` (JAX's ``vmap`` over those keys draws the
 same numbers per key), each tensor drawn on its own so no stacked
@@ -20,8 +24,7 @@ that cache (the JAX step returns a new one); its ``cur_len`` is a 0-d
 integer tensor on the model's device, and nothing in the step reads a
 device value on the host.
 
-Not ported yet (ROADMAP A8): MLA (DeepSeek-V2), the ssm and hybrid
-families (Mamba2, Zamba2), the loss (``loss_and_aux``),
+Not ported yet (ROADMAP A8.6): the loss (``loss_and_aux``),
 rematerialisation and the sharding plumbing (``param_specs``,
 ``cache_specs``).
 """
@@ -39,23 +42,12 @@ from repro_torch.models.attention import flash_chunked
 from repro_torch.models.common import (dtype_of, embed_init, matmul_cd,
                                        rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm", "audio", "gemma2", "moe")
-
-
 class LMModel:
     def __init__(self, cfg: ArchConfig, *, attention=flash_chunked):
         """``attention``: ``flash_chunked`` (B8 on the card, the plain
         version on the CPU) or ``models.attention.flash_chunked_ref`` (the
         plain version on either device)."""
         fam = cfg.family
-        if fam not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"the {fam!r} family ({cfg.name}) is not ported yet; "
-                f"the port runs {PORTED_FAMILIES}")
-        if cfg.is_mla:
-            raise NotImplementedError(
-                f"MLA attention ({cfg.name}, the {fam!r} family) is not "
-                "ported yet")
         self.cfg = cfg
         self.attention = attention
         if fam == "gemma2":
@@ -67,6 +59,15 @@ class LMModel:
             self.n_stack = cfg.n_layers - (1 if cfg.moe_dense_first else 0)
             self._init_block = B.init_moe_block
             self._apply_block = B.moe_block_apply
+        elif fam == "ssm":
+            self.n_stack = cfg.n_layers
+            self._init_block = B.init_mamba_block
+            self._apply_block = B.mamba_block_apply
+        elif fam == "hybrid":
+            assert cfg.n_layers % cfg.shared_attn_every == 0
+            self.n_stack = cfg.n_layers // cfg.shared_attn_every
+            self._init_block = B.init_zamba_super
+            self._apply_block = None      # _run_stack: the shared params
         else:                             # dense / vlm / audio
             self.n_stack = cfg.n_layers
             self._init_block = B.init_dense_block
@@ -95,6 +96,8 @@ class LMModel:
         layer_keys = threefry.split(ks[1], self.n_stack)
         p["blocks"] = [self._init_block(layer_keys[i], cfg, device=dev)
                        for i in range(self.n_stack)]
+        if cfg.family == "hybrid":
+            p["shared"] = B.init_dense_block(ks[2], cfg, device=dev)
         if cfg.family == "moe" and cfg.moe_dense_first:
             p["first"] = B.init_moe_block(ks[3], cfg, dense_ffn=True,
                                           device=dev)
@@ -137,6 +140,10 @@ class LMModel:
         layers, 0-d float32 tensors."""
         cfg = self.cfg
         decode = cache is not None
+        apply_block = self._apply_block
+        if cfg.family == "hybrid":
+            def apply_block(bp, hh, cfg_, **kw):
+                return B.zamba_super_apply(bp, p["shared"], hh, cfg_, **kw)
         if cfg.family == "moe" and cfg.moe_dense_first:
             h, _, _ = B.moe_block_apply(
                 p["first"], h, cfg, positions=positions,
@@ -144,7 +151,7 @@ class LMModel:
                 dense_ffn=True, attention=self.attention)
         auxs = []
         for i, bp in enumerate(p["blocks"]):
-            h, _, aux = self._apply_block(
+            h, _, aux = apply_block(
                 bp, h, cfg, positions=positions,
                 cache=cache["blocks"][i] if decode else None,
                 cur_len=cur_len, attention=self.attention)
@@ -154,7 +161,7 @@ class LMModel:
             vals = [a[name] for a in auxs]
             if all(torch.is_tensor(v) for v in vals):
                 out_aux[name] = torch.stack(vals).mean()
-            else:                         # the dense and Gemma2 blocks
+            else:                         # blocks without a router
                 out_aux[name] = torch.zeros((), dtype=torch.float32,
                                             device=h.device)
         return h, cache, out_aux
@@ -172,25 +179,49 @@ class LMModel:
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
                    device="cuda"):
-        """Zero KV caches: ``{"blocks": [per-layer cache], "first": ...}``,
-        each layer's ``{"k", "v"}`` of shape (batch, max_len, Hkv, Dh)
-        (a Gemma2 pair's ``{"local": ..., "global": ...}``)."""
+        """Zero caches: ``{"blocks": [per-layer cache], "first": ...}``.
+        A GQA layer's is ``{"k", "v"}`` of shape (batch, max_len, Hkv, Dh)
+        (a Gemma2 pair's ``{"local": ..., "global": ...}``); an MLA
+        layer's ``{"latent" (batch, max_len, kv_lora_rank), "k_rope"
+        (batch, max_len, q_rope_dim)}``; a Mamba2 layer's ``{"conv"
+        (batch, ssm_conv - 1, H, P) in ``dtype``, "ssm" (batch, H, N, P)
+        in float32}``; a Zamba2 super-block's ``{"mamba": [one per Mamba2
+        block], "attn": {"k", "v"}}``."""
         dev = resolve_device(device)
         cfg = self.cfg
 
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
         def kv():
             shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            return {"k": zeros(*shape), "v": zeros(*shape)}
+
+        def latent():
+            return {"latent": zeros(batch, max_len, cfg.kv_lora_rank),
+                    "k_rope": zeros(batch, max_len, cfg.q_rope_dim)}
+
+        def mamba():
+            H, Pd = cfg.ssm_nheads, cfg.ssm_headdim
+            return {"conv": zeros(batch, cfg.ssm_conv - 1, H, Pd),
+                    "ssm": zeros(batch, H, cfg.ssm_state, Pd,
+                                 dt=torch.float32)}
 
         if cfg.family == "gemma2":
-            blocks = [{"local": kv(), "global": kv()}
-                      for _ in range(self.n_stack)]
+            def layer():
+                return {"local": kv(), "global": kv()}
+        elif cfg.family == "ssm":
+            layer = mamba
+        elif cfg.family == "hybrid":
+            def layer():
+                return {"mamba": [mamba() for _ in
+                                  range(cfg.shared_attn_every)],
+                        "attn": kv()}
         else:
-            blocks = [kv() for _ in range(self.n_stack)]
-        cache = {"blocks": blocks}
+            layer = latent if cfg.is_mla else kv
+        cache = {"blocks": [layer() for _ in range(self.n_stack)]}
         if cfg.family == "moe" and cfg.moe_dense_first:
-            cache["first"] = kv()
+            cache["first"] = latent() if cfg.is_mla else kv()
         return cache
 
     @torch.inference_mode()

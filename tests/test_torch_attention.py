@@ -119,7 +119,7 @@ def test_ragged_sequence_length(s, chunk_k, opts):
 
 def test_flash_chunked_ref_offset_and_latent_values_match_jax():
     """What the plain version takes beyond B8: a query offset into a longer
-    KV sequence (decode-style prefill) and Dv != D (MLA)."""
+    KV sequence (decode-style prefill), here with Dv != D (MLA)."""
     rng = np.random.default_rng(3)
     q = rng.normal(size=(2, 8, 4, 16)).astype(np.float32)
     k = rng.normal(size=(2, 24, 2, 16)).astype(np.float32)
@@ -151,7 +151,8 @@ def launched(monkeypatch):
 def test_dispatch_on_device(monkeypatch):
     """CPU tensors run the plain versions and launch nothing; other
     devices raise; on the card, what B8 does not take raises before any
-    launch."""
+    launch: a value width Dv that no kernel takes (4: the SIMT kernel
+    takes 8..256 in steps of 8) and a query offset."""
     q, k, v = map(torch.from_numpy, _qkv(16, 8, 2, 1, seed=1))
     kernels.reset_launches()
     flash_attention(q, k, v)
@@ -162,8 +163,8 @@ def test_dispatch_on_device(monkeypatch):
         flash_attention(*[t.to("meta") for t in (q, k, v)])
     monkeypatch.setattr(_build, "kernel_device", lambda *t: "cuda")
     qs, ks = q.transpose(1, 2), k.transpose(1, 2)
-    with pytest.raises(NotImplementedError, match="Dv"):
-        t_attn.flash_chunked(qs, ks, torch.zeros(1, 16, 1, 4), scale=1.0)
+    with pytest.raises(ValueError, match="Dv = 4"):
+        t_attn.flash_chunked(qs, ks, torch.zeros(2, 16, 1, 4), scale=1.0)
     with pytest.raises(NotImplementedError, match="q_offset"):
         t_attn.flash_chunked(qs, ks, v.transpose(1, 2), scale=1.0,
                              q_offset=4)
