@@ -60,7 +60,7 @@ them:
       Qwen2-7B's (B 1, S 4096, 28 query and 4 KV heads of 128, bf16),
       Gemma2-2b's (B 1, S 8192, 8 query and 4 KV heads of 256, softcap 50)
       with window 4096 and 0, and MusicGen's shape in float32.  bf16 at D
-      64, 128 and 256 takes the tensor-core kernel (wgmma, TMA), float32 at
+      64, 80, 128 and 256 takes the tensor-core kernel (wgmma, TMA), float32 at
       D 64 and 128 its float32 counterpart (3xTF32 on wgmma), every other
       dtype and D the SIMT kernel (each case checks which one launched);
       each kernel against the plain version (TOL_ATTN_F32, one bf16 ulp),
@@ -69,7 +69,8 @@ them:
       without softcap or window, ``F.scaled_dot_product_attention`` as the
       yardstick.  Checked too, through the routed calls: a ragged S (1,499)
       and the model's (B, S, H, D) layout through strides, at each D of
-      both tensor-core kernels, and float32 at D 96 (the SIMT kernel);
+      both tensor-core kernels (at D 80 also an S of 24, which fills no
+      tile), and float32 at D 96 (the SIMT kernel);
   (i) the latents pipeline of ``repro_torch.examples.embed_latents`` with
       MusicGen-large at full width and depth (48 layers, d_model 2048,
       float32 params from ``init_params(0)`` by threefry on the card, bf16
@@ -210,8 +211,10 @@ them:
       each with ``hidden_states`` of seeded tokens through B8 with the
       launch counters at 0 just before (the tensor-core kernel once a
       layer, nothing else) and through the plain ``flash_chunked_ref``
-      (TOL_LATENTS), B8 held and timed at each attention shape of the path
-      (a row each: Gemma2's local window-4,096 and global layers, OLMoE's),
+      (TOL_LATENTS), a second, warm ``hidden_states`` under the profiler
+      (device busy share, B8's device ms in it), B8 held and timed at each
+      attention shape of the path (a row each: Gemma2's local window-4,096
+      and global layers, OLMoE's),
       teacher-forced ``serve_step`` from ``init_cache`` held against the
       prefill's logits (TOL_DECODE; Gemma2 every one of its 4,352
       positions, held at the first O_FIRST and the last O_LAST, past the
@@ -235,8 +238,9 @@ them:
       through ``serve_model`` as in phase (o): ``hidden_states`` with the
       launch counters at 0 just before (B8 once a layer on the tensor-core
       kernel at D 192, Dv 128 for DeepSeek; none for Mamba2; once a
-      super-block on the SIMT kernel at D 80 for Zamba2), B8 held and
-      timed on the path (DeepSeek's SIMT kernel timed beside), decode of
+      super-block on the tensor-core kernel at D 80 for Zamba2), B8 held
+      and timed on the path (the SIMT kernel timed beside, DeepSeek's and
+      Zamba2's), decode of
       every position held against the prefill (TOL_DECODE; Mamba2 and
       Zamba2 TOL_DECODE_SSM, and Zamba2's hidden states through B8
       against the plain version TOL_LATENTS_SSM) with one planted fault
@@ -360,7 +364,10 @@ ATTN_CASES = (
 # tensor-core kernels, DeepSeek-V2's MLA pair (D 192, Dv 128) among them;
 # one float32 case at D 96 and MLA's pair in float32, which route to the
 # SIMT kernel.  At D = 256 (bf16) and D = 64 (float32) a CTA holds 128
-# query rows, and S = 1,050 leaves the last CTA's second warpgroup no row
+# query rows, and S = 1,050 leaves the last CTA's second warpgroup no row.
+# At D 80 (Zamba2-2.7B's shared block: the Q and K tiles' second box of 64
+# columns overhangs the row, V's last 16 columns take a box of their own)
+# also an S of 24, which fills no tile
 ATTN_CHECKS = (
     ("ragged_d64", 2, 8, 4, 1499, 64, 64, torch.bfloat16, 0.0, 0, "bhsd"),
     ("ragged_d128_window", 1, 8, 2, 1499, 128, 128, torch.bfloat16, 0.0, 700,
@@ -373,6 +380,10 @@ ATTN_CHECKS = (
      torch.bfloat16, 0.0, 0, "bshd"),
     ("mla_strided_d192_v128_window", 1, 8, 8, 1050, 192, 128, torch.bfloat16,
      0.0, 300, "bshd"),
+    ("ragged_d80", 2, 8, 4, 1499, 80, 80, torch.bfloat16, 0.0, 0, "bhsd"),
+    ("zamba2_strided_d80_softcap_window", 1, 32, 32, 1050, 80, 80,
+     torch.bfloat16, 50.0, 300, "bshd"),
+    ("short_d80", 2, 8, 4, 24, 80, 80, torch.bfloat16, 0.0, 0, "bhsd"),
     ("f32_ragged_d64", 2, 8, 4, 1499, 64, 64, torch.float32, 0.0, 0, "bhsd"),
     ("f32_strided_d64_softcap_window", 2, 8, 4, 1050, 64, 64, torch.float32,
      50.0, 300, "bshd"),
@@ -1498,11 +1509,50 @@ def _planted_faults(model, params, snap, tokens, cut, n_dec, full, scale):
             "window mask off": _vs_prefill(win, full[:, O_FIRST:], scale)}
 
 
+def _device_ms(prof, per=1):
+    """{name: (device ms / ``per``, events)} of a profile's device events,
+    summed by name as they come: building ``key_averages``' event tree of
+    a long trace takes seconds."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, cnt = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6 / per, cnt + 1)
+    return by_name
+
+
+def _top(by_name, n=6):
+    """The ``n`` names of ``_device_ms`` with the most device time, as
+    (name, ms, events)."""
+    return sorted(((k, ms, cnt) for k, (ms, cnt) in by_name.items()),
+                  key=lambda r: -r[1])[:n]
+
+
+def _prefill_busy(model, params, tokens):
+    """A second, warm ``hidden_states`` under the profiler (device activity
+    only): device busy ms, the profiled wall ms, B8's device ms and events
+    (kernels whose name holds ``flash_``) and the top kernels by device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.hidden_states(params, tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_ms(prof)
+    busy = sum(ms for ms, _ in by_name.values())
+    check(busy > 0, "the profiler recorded no kernel of the prefill")
+    b8 = [(ms, cnt) for k, (ms, cnt) in by_name.items() if "flash_" in k]
+    return (busy, wall, sum(ms for ms, _ in b8), sum(c for _, c in b8),
+            _top(by_name, 4))
+
+
 def _decode_busy(model, params, tokens, max_len):
     """O_PROFILE decode steps from a fresh cache under the profiler (device
     activity): device busy ms a step (kernel time), the profiled wall ms a
     step, and the top kernels by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import make_serve_step
     step = make_serve_step(model)
@@ -1518,19 +1568,10 @@ def _decode_busy(model, params, tokens, max_len):
             step(params, cache, tokens[:, t:t + 1], lens[t])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / O_PROFILE * 1e3
-    # the trace's device events summed by name as they come: building
-    # key_averages' event tree of this many events takes seconds
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            ms, cnt = by_name.get(e.name(), (0.0, 0))
-            by_name[e.name()] = (ms + e.duration_ns() / 1e6 / O_PROFILE,
-                                 cnt + 1)
+    by_name = _device_ms(prof, O_PROFILE)
     busy = sum(ms for ms, _ in by_name.values())
     check(busy > 0, "the profiler recorded no kernel of the decode steps")
-    top = sorted(((k, ms, cnt) for k, (ms, cnt) in by_name.items()),
-                 key=lambda r: -r[1])[:6]
-    return busy, wall, top
+    return busy, wall, _top(by_name)
 
 
 def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev, *,
@@ -1540,7 +1581,8 @@ def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev, *,
     ``hidden_states`` of ``batch`` x ``s_len`` seeded tokens through B8
     (launch counters at 0 just before: B8's ``b8_route`` kernel
     ``b8_count`` times, default once a layer, nothing else) and, where B8
-    runs, through the plain ``flash_chunked_ref``; B8 held and timed at
+    runs, through the plain ``flash_chunked_ref`` and once more under the
+    profiler (``_prefill_busy``); B8 held and timed at
     each of the path's attention shapes (``_b8_model_row``; ``simt_too``:
     the SIMT kernel beside it); teacher-forced decode of ``n_dec``
     positions from ``init_cache(batch, n_dec)`` held against the prefill's
@@ -1613,6 +1655,10 @@ def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev, *,
         check(rel_h <= tol_h,
               f"{cfg.name} hidden states, B8 vs plain: {rel_h}")
         del h_p
+        busy_p, wall_p, b8_ms, b8_n, top_p = _prefill_busy(model, params,
+                                                           tokens)
+        check(b8_n == b8_count, f"{cfg.name}: {b8_n} B8 kernels in the "
+              f"profiled prefill, expected {b8_count}")
         vs = (f"B8's {B8_LABEL[b8_route]} kernel launched {b8_count} times "
               f"({', '.join(f'{k_} {v_}' for k_, v_ in sorted(counts.items()))}"
               f"), nothing else; {rel_h:.3e} from the plain flash_chunked's "
@@ -1621,6 +1667,14 @@ def serve_model(name, cfg, batch, s_len, n_dec, keep, tag, dev, *,
         vs = "no kernel of the port launched (no attention; SSD is plain)"
     log(f"{tag} hidden_states of {batch} x {s_len} tokens: {t_pre:.2f}s "
         f"({batch * s_len / t_pre:.0f} tokens/s); {vs}")
+    if b8_count:
+        log(f"{tag} profiler, a second (warm) hidden_states: device busy "
+            f"{busy_p:.2f} ms against {wall_p:.2f} ms of profiled wall "
+            f"({busy_p / wall_p:.1%}); B8 {b8_ms:.3f} ms in {b8_n} kernels "
+            f"({b8_ms / busy_p:.1%} of the device time); device time by "
+            f"kernel:")
+        for key, ms, cnt in top_p:
+            log(f"    {ms:9.4f} ms  {cnt:6d}x  {key[:90]}")
     rows = [r_ for kind, call in sorted(calls.items())
             for r_ in _b8_model_row(f"flash_attention_{name}" + (
                 f"_{kind}" if len(calls) > 1 else ""), call, counts[kind], 5,
@@ -1930,8 +1984,9 @@ def serve_main_p(path):
     :func:`serve_phase`: (p1) DeepSeek-V2 at 4 layers (MLA, B8 at D 192,
     Dv 128 on the tensor-core kernel, the SIMT kernel timed beside it),
     (p2) Mamba2-130m (no attention; the chunk scan against the recurrence)
-    and (p3) Zamba2-2.7b (the shared block's B8 at D 80 on the SIMT
-    kernel) through ``serve_model``, each with its planted fault
+    and (p3) Zamba2-2.7b (the shared block's B8 at D 80 on the
+    tensor-core kernel, the SIMT kernel timed beside it) through
+    ``serve_model``, each with its planted fault
     (``_p_faults``); writes the B8 rows as JSON to ``path``."""
     dev = _serve_setup("p")
     t_p = time.perf_counter()
@@ -1942,7 +1997,7 @@ def serve_main_p(path):
             ("mamba2", P_MAMBA, "[p2]", {},
              dict(b8_count=0, tol=TOL_DECODE_SSM)),
             ("zamba2", P_ZAMBA, "[p3]", {},
-             dict(b8_route="simt", tol=TOL_DECODE_SSM,
+             dict(b8_route="wgmma", simt_too=True, tol=TOL_DECODE_SSM,
                   tol_h=TOL_LATENTS_SSM))):
         if layers:
             cfg_kw["n_layers"] = layers
@@ -2118,6 +2173,7 @@ def main():
     log(f"    X {tuple(X.shape)} {X.numel() * 4 / 1e6:.1f} MB on the card")
 
     # ---- (b) each kernel against its plain version ----------------------
+    log(f"[b] starts {time.perf_counter() - t_start:.1f}s into the script")
     # one step on quantised data through recording ops gives every kernel's
     # main-path inputs (the gate always fires at step 0: E[N_new/N] = 1)
     rec = Recorder(funcsne)
@@ -2227,6 +2283,7 @@ def main():
         f"(N, 2) within {ulps} ulps of the CPU (reported, not checked)")
 
     # ---- (c) one full step, kernels vs plain versions -------------------
+    log(f"[c] starts {time.perf_counter() - t_start:.1f}s into the script")
     st_k = funcsne.funcsne_step(cfg, stq, Xq, hp, ops=funcsne.KERNELS)
     st_p = funcsne.funcsne_step(cfg, stq, Xq, hp, ops=funcsne.PLAIN)
     for name in ("hd_idx", "hd_d", "ld_idx", "new_flag", "step", "ema_new_frac"):
@@ -2244,6 +2301,7 @@ def main():
     del st_k, st_p, stq, rec
 
     # ---- (d) the main path at full width ---------------------------------
+    log(f"[d] starts {time.perf_counter() - t_start:.1f}s into the script")
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2316,6 +2374,7 @@ def main():
     check(rec1 > RECALL_MIN, f"HD recall {rec1} <= {RECALL_MIN}")
 
     # ---- (e) per-kernel times -------------------------------------------
+    log(f"[e] starts {time.perf_counter() - t_start:.1f}s into the script")
     out = []
 
     def kernel_split(fn, reps=20):
@@ -2623,6 +2682,7 @@ def main():
     del prof, rows_p
 
     # ---- (f) the flag paths ----------------------------------------------
+    log(f"[f] starts {time.perf_counter() - t_start:.1f}s into the script")
     # (flags, the launch counters its F_ITERS steps must move; every other
     # counter must stay at 0)
     b2 = {hd_key["knn_merge_cand"], ld_key["knn_merge_cand"]}
@@ -3099,6 +3159,7 @@ def main():
         f"{gate_share:.2f} of steps")
 
     # ---- (g) nearest-neighbour descent ------------------------------------
+    log(f"[g] starts {time.perf_counter() - t_start:.1f}s into the script")
     ncfg = nnd.NNDConfig()
     nkey = threefry.prng_key(0)
     r0 = threefry.fold_in(nkey, 0)
@@ -3168,22 +3229,24 @@ def main():
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only, its events summed by name (_device_ms): the
+    # host ops of a whole NND run under the profiler, and key_averages'
+    # event tree over them, cost far more wall time than the run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, hist_p = nnd.nnd(X, ncfg, nkey, max_iter=NND_ITERS, tol=1e-3,
                                device=dev,
                                ops=funcsne.KERNELS._replace(knn_merge=rec_late))
         torch.cuda.synchronize()
-    wall_p = time.perf_counter() - t0
+        wall_p = time.perf_counter() - t0
     check(hist_p == hist and dict(kernels.LAUNCHES) == launches_g,
           "NND under the profiler: another history or other launches")
-    ev = [(e.key, e.self_device_time_total / 1e3, e.count)
-          for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    by_name = _device_ms(prof)
     del prof
-    busy_g = sum(t_ for _, t_, _ in ev)
-    b4_ms = sum(t_ for k_, t_, _ in ev if "knn_merge" in k_)
-    b4_n = sum(n_ for k_, _, n_ in ev if "knn_merge" in k_)
+    log(f"[g] the profiled NND run and its trace took "
+        f"{time.perf_counter() - t0:.1f}s")
+    busy_g = sum(t_ for t_, _ in by_name.values())
+    b4_ms = sum(t_ for k_, (t_, _) in by_name.items() if "knn_merge" in k_)
+    b4_n = sum(n_ for k_, (_, n_) in by_name.items() if "knn_merge" in k_)
     check(b4_ms > 0, "the profiler saw no B4 kernel in NND")
     n_it = len(hist_p)
     log(f"[g] profiler over the whole run ({n_it} iterations): device busy "
@@ -3200,6 +3263,7 @@ def main():
     del late
 
     # ---- (h) B8 alone ------------------------------------------------------
+    log(f"[h] starts {time.perf_counter() - t_start:.1f}s into the script")
     def b8_rows(name, fns, reps, bytes_, flops, errs, library=None,
                 tag="[h]", timer=time_ms):
         """Time B8's kernels in turns (plain, tensor-core, SIMT,
@@ -3310,6 +3374,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- (i) MusicGen-large's hidden states into an 8-D FUnc-SNE ------------
+    log(f"[i] starts {time.perf_counter() - t_start:.1f}s into the script")
     cfg_m = get_arch("musicgen-large")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3624,6 +3689,7 @@ def main():
     del H, st_l
 
     # ---- (j) the repairs: width (C1), snapshots (C2), determinism (C3) ------
+    log(f"[j] starts {time.perf_counter() - t_start:.1f}s into the script")
     for d_ld in C1_WIDTHS:
         cfg_w = dataclasses.replace(cfg, dim_ld=d_ld)
         stq = funcsne.init_state(Xq, cfg_w, seed=1, device=dev)
@@ -3981,6 +4047,7 @@ def main():
     del st_fit, snaps
 
     # ---- (k) the secondary algorithms and the session controls -----------
+    log(f"[k] starts {time.perf_counter() - t_start:.1f}s into the script")
     t_k = time.perf_counter()
     ns_cfg = baselines.NSConfig()
     key7 = edges_key("ne_forces", 2)
@@ -4265,10 +4332,12 @@ def main():
     log(f"[k] phase (k) took {time.perf_counter() - t_k:.1f}s")
 
     # ---- (l) resilience and recovery ----------------------------------------
+    log(f"[l] starts {time.perf_counter() - t_start:.1f}s into the script")
     resilience_phase(X, y_np, cfg, hp, st, ITERS / t_run, recall,
                      main_kernels, hd_key, ld_key, card)
 
     # ---- (m) the distributed step on the card -------------------------------
+    log(f"[m] starts {time.perf_counter() - t_start:.1f}s into the script")
     from repro_torch.launch import mesh as mesh_lib
     t_m = time.perf_counter()
     torch.cuda.empty_cache()
@@ -4362,13 +4431,16 @@ def main():
     log(f"[m] phase (m) took {time.perf_counter() - t_m:.1f}s")
 
     # ---- (n) the elastic runtime across hosts -------------------------------
+    log(f"[n] starts {time.perf_counter() - t_start:.1f}s into the script")
     elastic_phase(X, rows, sub, true_idx, rec1, auc,
                   m_quality["(2,1) run 1"], expected, card)
 
     # ---- (o) the LM serving path and A7's examples -------------------------
+    log(f"[o] starts {time.perf_counter() - t_start:.1f}s into the script")
     out.extend(serve_phase("o"))
 
     # ---- (p) serving for MLA, Mamba2 and Zamba2 ----------------------------
+    log(f"[p] starts {time.perf_counter() - t_start:.1f}s into the script")
     out.extend(serve_phase("p"))
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")

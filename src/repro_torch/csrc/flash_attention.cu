@@ -1,10 +1,11 @@
 // B8: causal GQA flash attention (online softmax), the SIMT kernel: fp32
 // and bf16, any D (q and k) and Dv (v and out) from 8 to 256 in steps of
 // 8.  The port launches it for the float32 and bf16 (D, Dv) that the
-// tensor-core kernels (flash_attention_wgmma.cu: bf16 at D = Dv 64, 128
-// and 256 and at MLA's (192, 128); flash_attention_tf32.cu: float32 at
+// tensor-core kernels (flash_attention_wgmma.cu: bf16 at D = Dv 64, 80,
+// 128 and 256 and at MLA's (192, 128); flash_attention_tf32.cu: float32 at
 // D = Dv 64 and 128) do not take; kernels/flash_attention/ops.py chooses
-// by dtype, D and Dv.
+// by dtype, D and Dv.  In bf16 no registered config at full size comes
+// here any more (their smoke variants' heads of 32 do).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 //   flash_attention_pallas (body _flash_kernel).  No module of the JAX

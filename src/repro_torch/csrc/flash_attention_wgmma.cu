@@ -1,14 +1,15 @@
 // B8 on Hopper's tensor cores: causal GQA flash attention for bf16 q, k, v
-// and out at (D, Dv) = (64, 64), (128, 128), (256, 256) and (192, 128),
-// with wgmma fed by TMA through an mbarrier ring.  D is the width of q and
-// k, Dv that of v and out.
+// and out at (D, Dv) = (64, 64), (80, 80), (128, 128), (256, 256) and
+// (192, 128), with wgmma fed by TMA through an mbarrier ring.  D is the
+// width of q and k, Dv that of v and out.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:86,
 //   flash_attention_pallas (body _flash_kernel), for bf16 at those widths:
-//   the heads of MusicGen-large (64), Qwen2-7B (128) and Gemma2-2b (256),
-//   and DeepSeek-V2's MLA prefill (q and k of 128 + 64, v of 128: the
-//   contract of repro.models.attention.flash_chunked, "Dv may differ from
-//   D", which the Pallas kernel itself does not take).  The SIMT kernel
+//   the heads of MusicGen-large (64), Zamba2-2.7B's shared attention
+//   block (80), Qwen2-7B (128) and Gemma2-2b (256), and DeepSeek-V2's MLA
+//   prefill (q and k of 128 + 64, v of 128: the contract of
+//   repro.models.attention.flash_chunked, "Dv may differ from D", which
+//   the Pallas kernel itself does not take).  The SIMT kernel
 //   (flash_attention.cu) keeps float32 and the other widths;
 //   kernels/flash_attention/ops.py chooses by dtype, D and Dv.
 //   It computes what the SIMT kernel computes (causal mask, optional
@@ -19,34 +20,43 @@
 //   pairs flops (QK^T and PV over the (row, col) pairs the mask keeps), at
 //   989 TFLOP/s in bf16: MusicGen's prefill shape (B 4, S 1500, 32 heads of 64)
 //   is 36.9 GFLOP, 0.037 ms, against 0.015 ms for the bytes of q, k, v and
-//   out.  What the design does about it: every product runs on the tensor
-//   cores (wgmma), the next K and V tiles arrive by TMA while the current
-//   one is computed, and scores and probabilities never leave registers.
-//   Two costs stay above the bound: P.V runs twice (the split below), 1.5x
-//   the tensor-core work of one pass; and the softmax's exp, max and sum
-//   per score run on the SM's FP32 and MUFU units, which at D = 64 take
-//   longer than the tile's wgmma (no ping-pong of two warpgroups here).
+//   out; Zamba2-2.7B's prefill (B 2, S 2048, 32 heads of 80) is 43.0
+//   GFLOP, 0.043 ms.  What the design does about it: every product runs
+//   on the tensor cores (wgmma), the next K and V tiles arrive by TMA
+//   while the current one is computed, and scores and probabilities never
+//   leave registers.  Two costs stay above the bound: P.V runs twice (the
+//   split below), 1.5x the tensor-core work of one pass; and the softmax's
+//   exp, max and sum per score run on the SM's FP32 and MUFU units, which
+//   at D = 64 take longer than the tile's wgmma (no ping-pong of two
+//   warpgroups here).
 //
 // Design (TMA, wgmma, an mbarrier pipeline, warp specialisation):
 //   * Grid: one CTA per (query tile, head, batch), the query tiles with the
 //     most KV tiles launched first.  A query tile is 64 rows per consumer
-//     warpgroup: one consumer warpgroup at D = 64, 128 and (192, 128) (two
-//     CTAs per SM), two at D = 256 (one CTA per SM: its tiles fill shared
-//     memory).  One
-//     more warpgroup is the producer: one of its threads issues every TMA
-//     load; setmaxnreg drops it to 24 registers and raises the consumers to
-//     232 (240 with two consumer warpgroups).
+//     warpgroup: one consumer warpgroup at D = 64, 80, 128 and (192, 128)
+//     (two CTAs per SM), two at D = 256 (one CTA per SM: its tiles fill
+//     shared memory).  One more warpgroup is the producer: one of its
+//     threads issues every TMA load; setmaxnreg drops it to 24 registers
+//     and raises the consumers to 232 (240 with two consumer warpgroups).
 //   * Loads: the Q tile once, then K and V tiles of kBK = 64 keys through a
 //     ring of kStages = 2 stages (a K tile D wide, a V tile Dv wide, each
 //     through a tensor map of its own width).  Each stage has a full mbarrier for K and
 //     one for V, which TMA completes on the stage's byte count, and an empty
 //     mbarrier on which each consumer warp arrives once its warpgroup's
 //     wgmma have read the stage.  A tile is one box of 64 rows x 64 columns (128 bytes)
-//     per 64 columns of D, in 128-byte swizzle: the layout the wgmma
-//     descriptors name.  Shared memory: Q 8 KB x (D / 64) per consumer
-//     warpgroup, K 8 KB x (D / 64) and V 8 KB x (Dv / 64) per stage: 40 KB
-//     at D = 64, 80 KB at 128, 192 KB at 256, 104 KB at (192, 128), plus
-//     1 KB of alignment and the barriers.
+//     per 64 columns of D, ceil(D / 64) boxes, in 128-byte swizzle: the
+//     layout the wgmma descriptors name.  Where D is no multiple of 64 the
+//     last box overhangs the row: the tensor map has the real width, so
+//     TMA fills the box's columns past D with zeros (as it fills rows past
+//     S), and the stage's byte count is still the whole boxes'.  At D = 80
+//     that is columns 80-127 of Q's and K's second box.  A V tile is
+//     Dv / 64 such boxes and, where Dv % 64 = 16 (Dv = 80), its last 16
+//     columns in a box of 64 rows x 32 bytes of their own, in 32-byte
+//     swizzle, through a tensor map of its own.  Shared memory: Q 8 KB x
+//     ceil(D / 64) per consumer warpgroup, K 8 KB x ceil(D / 64) and V 8 KB
+//     x (Dv / 64), plus 2 KB for a tail, per stage: 40 KB at D = 64, 68 KB
+//     at 80, 80 KB at 128, 192 KB at 256, 104 KB at (192, 128), plus 1 KB
+//     of alignment and the barriers.
 //   * Tensor maps: 4-D over the strided view (D, S, H, B), encoded on the
 //     host with cuTensorMapEncodeTiled.  The library gets that driver
 //     function at run time through cudaGetDriverEntryPoint(ByVersion), so
@@ -55,8 +65,10 @@
 //     ragged last tile is masked as in the SIMT kernel.  TMA needs 16-byte
 //     strides and base addresses: the wrapper raises on others.
 //   * S = Q K^T: wgmma m64n64k16, bf16 x bf16 -> fp32, A and B both from
-//     shared memory and both K-major.  The products of bf16 values are exact
-//     in fp32; only the order of the sum differs from the plain version.
+//     shared memory and both K-major, over D / 16 k-steps (five at D = 80,
+//     so the zero columns of an overhanging box are never multiplied).  The
+//     products of bf16 values are exact in fp32; only the order of the sum
+//     differs from the plain version.
 //   * Softmax in registers, in the accumulator's layout (a thread holds rows
 //     r and r + 8 of its warp's 16, two adjacent columns of every 8):
 //     scale, softcap, then the mask, only on the tiles that cross the
@@ -65,11 +77,17 @@
 //     within the quad that holds a row; exp(x - max) as one FFMA and one
 //     ex2; fp32 running max and denominator, the latter summed from fp32 p.
 //   * O += P V with P split in two: p_hi = bf16(p), p_lo = bf16(p - p_hi),
-//     two register-A wgmma m64nDvk16 against the same V tile (B MN-major,
-//     through the instruction's transpose bit) into one fp32 accumulator.
-//     p_hi + p_lo carries p to about 2^-16 relative.  One bf16 P (2^-9)
-//     fails chip_smoke phase (h)'s check against the plain version, which
-//     keeps p in fp32, in 8% of the outputs at MusicGen's prefill shape.
+//     two register-A wgmma passes against the same V tile (B MN-major,
+//     through the instruction's transpose bit) into one fp32 accumulator:
+//     each k-step one m64nNk16 at N = 64 (Dv / 64) over V's whole boxes
+//     and, at Dv = 80, one m64n16k16 over the tail box (a 32-byte-swizzled
+//     descriptor), so no product reaches past Dv.  The other form, P.V at
+//     N = 128 over two boxes of 64 whose second overhangs (zero columns
+//     80-127), took 1.08x this one's time at Zamba2-2.7B's shape on the
+//     H100 (scripts/b8_d80_ab.py).  p_hi + p_lo carries p to about 2^-16
+//     relative.  One bf16 P (2^-9) fails chip_smoke phase (h)'s check
+//     against the plain version, which keeps p in fp32, in 8% of the
+//     outputs at MusicGen's prefill shape.
 //   * Epilogue: O / max(l, 1e-30), rounded to bf16 (RN), stored through the
 //     out strides.
 //   * A wait on an mbarrier that has not completed after 2^34 cycles (about
@@ -88,6 +106,7 @@ constexpr int kBK = 64;                  // keys per KV tile
 constexpr int kStages = 2;               // KV tiles in flight
 constexpr int kBox = 64;                 // rows and columns of a TMA box
 constexpr int kBoxBytes = kBox * 128;    // 64 rows of 128 bytes
+constexpr int kTailBytes = kBox * 32;    // 64 rows of 16 bf16 (V's tail)
 constexpr int kProducerRegs = 24;
 constexpr float kNeg = -1e30f;           // the JAX kernel's _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
@@ -102,15 +121,24 @@ struct Cfg {
   static constexpr int NWG = NWG_;
   static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
   static constexpr int kConsumerRegs = NWG == 1 ? 232 : 240;
-  static constexpr int kBlocks = D / 64;           // boxes across D
-  static constexpr int kVBlocks = DV / 64;         // boxes across Dv
+  // boxes of 64 columns across D; at D % 64 != 0 the last box overhangs
+  // the row, and TMA fills its columns past D with zeros
+  static constexpr int kBlocks = (D + 63) / 64;
+  static constexpr int kKSteps = D / 16;           // k-steps of S = Q K^T
+  // V: Dv / 64 boxes of 64 columns, then Dv % 64 (0 or 16) columns in a
+  // 32-byte-swizzled box of their own
+  static constexpr int kVBlocks = DV / 64;
+  static constexpr int kVTail = DV % 64;
   static constexpr int kTileBytes = kBlocks * kBoxBytes;    // a Q or K tile
-  static constexpr int kVTileBytes = kVBlocks * kBoxBytes;  // a V tile
+  static constexpr int kVTileBytes =
+      kVBlocks * kBoxBytes + (kVTail ? kTailBytes : 0);     // a V tile
   static constexpr int kQBytes = NWG * kTileBytes;
   static constexpr int kBars = 1 + 3 * kStages;    // q; k_full, v_full, empty
   static constexpr int kSmem = kQBytes + kStages * (kTileBytes + kVTileBytes);
   static constexpr int kSmemAlloc = 1024 + kSmem + 8 * kBars;
   static constexpr int kThreads = (NWG + 1) * 128;
+  static_assert(D % 16 == 0 && DV >= 64 && (kVTail == 0 || kVTail == 16),
+                "k-steps of 16; V in boxes of 64 and one of 16 columns");
 };
 
 // ---- wgmma: each shape with its accumulator registers written out ----
@@ -240,6 +268,22 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "r"(scale_d));
 }
 
+// D (64 x 16, fp32) (+)= A (64 x 16, bf16 registers) * B (16 x 16, smem,
+// MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 template <int DV>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
@@ -250,6 +294,23 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
   } else {
     wgmma_rs_n256(o, a, db, 1);
   }
+}
+
+// O (64 x Dv) += A (one k-step of P, 16 keys) * V: the V tile's whole
+// boxes by one wgmma at N = 64 (Dv / 64), its 16-column tail, if any, by
+// one at N = 16.  o's fragments of the two products follow each other in
+// the accumulator's layout, so o[4 j + e] is column 8 j + ... throughout.
+template <class C>
+__device__ __forceinline__ void wgmma_pv_step(float (&o)[C::DV / 2],
+                                              const uint32_t (&a)[4],
+                                              uint32_t v_base, int kk) {
+  constexpr int NM = C::kVBlocks * 64;
+  wgmma_pv<NM>(*reinterpret_cast<float(*)[NM / 2]>(o), a,
+               sw128_desc(v_base + kk * 16 * 128, kBoxBytes, 1024));
+  if constexpr (C::kVTail != 0)
+    wgmma_rs_n16(*reinterpret_cast<float(*)[8]>(o + NM / 2), a,
+                 sw32_desc(v_base + C::kVBlocks * kBoxBytes + kk * 16 * 32),
+                 1);
 }
 
 // (a, b) -> hi = bf16x2(a, b), lo = bf16x2 of what hi leaves of (a, b).
@@ -294,6 +355,7 @@ template <class C>
 __device__ __forceinline__ void produce(const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv,
+                                        const CUtensorMap* tvt,
                                         const FlashArgs& a, uint32_t sq,
                                         uint32_t sk, uint32_t sv, Bars bars,
                                         Walk w) {
@@ -322,6 +384,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
     for (int c = 0; c < C::kVBlocks; ++c)
       tma_load(sv + st * C::kVTileBytes + c * kBoxBytes, tv, bars.v_full(st),
                c * kBox, c0, hk, bb);
+    if constexpr (C::kVTail != 0)
+      tma_load(sv + st * C::kVTileBytes + C::kVBlocks * kBoxBytes, tvt,
+               bars.v_full(st), C::kVBlocks * kBox, c0, hk, bb);
   }
 }
 
@@ -363,14 +428,14 @@ __device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
       const uint32_t k_base = sk + st * C::kTileBytes;
       fence_regs(sc);
       wgmma_fence();
+      // k-step ks: 16 columns, 32 bytes into box ks / 4; none reaches
+      // the zero columns of an overhanging box
 #pragma unroll
-      for (int c = 0; c < C::kBlocks; ++c)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n64(sc, sw128_desc(q_base + c * kBoxBytes + kk * 32, 16,
-                                      1024),
-                       sw128_desc(k_base + c * kBoxBytes + kk * 32, 16, 1024),
-                       (c | kk) != 0);
+      for (int ks = 0; ks < C::kKSteps; ++ks) {
+        const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
+        wgmma_ss_n64(sc, sw128_desc(q_base + off, 16, 1024),
+                     sw128_desc(k_base + off, 16, 1024), ks != 0);
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -458,13 +523,9 @@ __device__ __forceinline__ void consume(const FlashArgs& a, uint32_t sq,
       fence_regs(p_lo);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<DV>(o, p_hi[kk], sw128_desc(v_base + kk * 16 * 128,
-                                             kBoxBytes, 1024));
+      for (int kk = 0; kk < 4; ++kk) wgmma_pv_step<C>(o, p_hi[kk], v_base, kk);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<DV>(o, p_lo[kk], sw128_desc(v_base + kk * 16 * 128,
-                                             kBoxBytes, 1024));
+      for (int kk = 0; kk < 4; ++kk) wgmma_pv_step<C>(o, p_lo[kk], v_base, kk);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -503,6 +564,7 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tvt,
                        const FlashArgs a) {
   constexpr int NWG = C::NWG;
   extern __shared__ uint8_t smem_raw[];
@@ -529,7 +591,7 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
   if (wg == NWG) {
     reg_dealloc<kProducerRegs>();
     if (threadIdx.x % 128 == 0)
-      produce<C>(&tq, &tk, &tv, a, sq, sk, sv, bars, w);
+      produce<C>(&tq, &tk, &tv, &tvt, a, sq, sk, sv, bars, w);
   } else {
     reg_alloc<C::kConsumerRegs>();
     consume<C>(a, sq, sk, sv, bars, w, wg);
@@ -557,16 +619,20 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
   }
   if (regs - kProducerRegs < NWG * (C::kConsumerRegs - regs))
     return repro::kErrRegisterPool;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, tvt;
   constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   int err = make_map(&tq, a.q, a.q_st, D, a.s, a.hq, a.b, kBf16, 2, kBox);
   if (!err)
     err = make_map(&tk, a.k, a.k_st, D, a.s, a.hkv, a.b, kBf16, 2, kBox);
   if (!err)
     err = make_map(&tv, a.v, a.v_st, DV, a.s, a.hkv, a.b, kBf16, 2, kBox);
+  tvt = tv;                               // read only where Dv % 64 != 0
+  if (!err && C::kVTail != 0)
+    err = make_map(&tvt, a.v, a.v_st, DV, a.s, a.hkv, a.b, kBf16, 2, kBox,
+                   C::kVTail * 2);
   if (err) return err;
   const dim3 grid((a.s + 64 * NWG - 1) / (64 * NWG), a.hq, a.b);
-  kernel<<<grid, C::kThreads, C::kSmemAlloc, stream>>>(tq, tk, tv, a);
+  kernel<<<grid, C::kThreads, C::kSmemAlloc, stream>>>(tq, tk, tv, tvt, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,5 +650,6 @@ extern "C" int repro_flash_attention_wgmma(const FlashArgs* args,
   if (a.d == 128 && a.dv == 128) return launch<Cfg<128, 128, 1>>(a, stream);
   if (a.d == 256 && a.dv == 256) return launch<Cfg<256, 256, 2>>(a, stream);
   if (a.d == 192 && a.dv == 128) return launch<Cfg<192, 128, 1>>(a, stream);
+  if (a.d == 80 && a.dv == 80) return launch<Cfg<80, 80, 1>>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

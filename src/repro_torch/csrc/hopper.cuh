@@ -2,8 +2,8 @@
 // (flash_attention_wgmma.cu for bf16, flash_attention_tf32.cu for float32)
 // and of B2/B4's ring route (knn_merge.cu: mbarriers, 1-D bulk copies):
 // PTX wrappers for mbarriers, TMA loads and the wgmma fences, the
-// shared-memory descriptor of a 128-byte-swizzled tile, and the host's
-// tensor map of a (B, H, S, D) view.
+// shared-memory descriptors of a 128-byte- and a 32-byte-swizzled tile, and
+// the host's tensor map of a (B, H, S, D) view.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums; no libcuda call
@@ -143,6 +143,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// The same for a 32-byte-swizzled tile (layout type 3), MN-major one
+// 16-element atom wide (bf16 V's 16-column tail at Dv = 80): SBO = 256, the
+// stride of 8 rows of 32 bytes; LBO, the stride between atoms along N, is
+// not read at N = 16.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(repro::kFullMask, v, 1));
   return fmaxf(v, __shfl_xor_sync(repro::kFullMask, v, 2));
@@ -183,11 +192,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The 4-D map (D, S, H, B) of one (B, H, S, D) view with element strides
-// st (b, h, s), in boxes of 128 bytes of D by `box_rows` rows of S, in
-// 128-byte swizzle.  TMA zero-fills the rows past S.
+// st (b, h, s), in boxes of `box_bytes` (128 or 32) of D by `box_rows` rows
+// of S, in the swizzle of that width.  TMA zero-fills the rows past S and
+// the columns past D.
 inline int make_map(CUtensorMap* map, const void* ptr, const int64_t st[3],
                     int d, int s, int h, int b, CUtensorMapDataType dtype,
-                    int elem_bytes, int box_rows) {
+                    int elem_bytes, int box_rows, int box_bytes = 128) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return repro::kErrNoEncodeTiled;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -197,12 +207,13 @@ inline int make_map(CUtensorMap* map, const void* ptr, const int64_t st[3],
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * elem_bytes,
                                  static_cast<cuuint64_t>(st[1]) * elem_bytes,
                                  static_cast<cuuint64_t>(st[0]) * elem_bytes};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem_bytes),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_bytes / elem_bytes),
                              static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, dtype, 4, const_cast<void*>(ptr), dims, strides,
                          box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                          : CU_TENSOR_MAP_SWIZZLE_32B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : repro::kErrTensorMap + static_cast<int>(r);

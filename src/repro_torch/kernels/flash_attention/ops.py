@@ -11,8 +11,9 @@ products, ``csrc/flash_attention_tf32.cu`` (``launch_tf32``,
 ``LAUNCHES["flash_attention_tf32"]``); every other dtype and pair the SIMT
 kernel of ``csrc/flash_attention.cu`` (``launch_simt``,
 ``LAUNCHES["flash_attention_simt"]``), which takes D and Dv from 8 to 256
-in steps of 8.  None stands in for another: a tensor that the chosen
-kernel does not take raises.
+in steps of 8: float32 at the other widths, and bfloat16 at the pairs
+outside ``WGMMA_DV`` (D 96, say, or D != Dv but MLA's).  None stands in
+for another: a tensor that the chosen kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-WGMMA_D = (64, 128, 256)     # MusicGen-large, Qwen2-7B, Gemma2-2b
+# MusicGen-large, Zamba2-2.7B's shared block, Qwen2-7B, Gemma2-2b
+WGMMA_D = (64, 80, 128, 256)
 # the (D, Dv) pairs of the tensor-core kernel: D = Dv in WGMMA_D, and
 # DeepSeek-V2's MLA prefill (q and k of 128 + 64, v of 128)
 WGMMA_DV = tuple((d, d) for d in WGMMA_D) + ((192, 128),)

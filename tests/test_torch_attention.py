@@ -176,13 +176,17 @@ def test_dispatch_on_device(monkeypatch):
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "simt"),
     (torch.bfloat16, 192, "simt"), (torch.float32, 64, "tf32"),
     (torch.float32, 256, "simt"), (torch.float32, 128, "tf32"),
-    (torch.float32, 96, "simt"), (torch.float32, 32, "simt")])
+    (torch.float32, 96, "simt"), (torch.float32, 32, "simt"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 96, "simt"),
+    (torch.float32, 80, "simt")])
 def test_dispatch_by_dtype_and_d(launched, dtype, d, route):
     """A CUDA tensor takes the kernel its dtype and D name, and counts the
-    launch under that kernel's key only: bf16 at D 64, 128 and 256 the
-    tensor-core kernel, float32 at D 64 and 128 the float32 tensor-core
-    kernel (3xTF32), the rest the SIMT kernel; so does the model path
-    (flash_chunked on the (B, S, H, D) layout, through strides)."""
+    launch under that kernel's key only: bf16 at D 64, 80 (Zamba2-2.7B's
+    shared block), 128 and 256 the tensor-core kernel, float32 at D 64
+    and 128 the float32 tensor-core kernel (3xTF32), the rest the SIMT
+    kernel (bf16 at D 32, 96 and 192, float32 at D 80 among them); so
+    does the model path (flash_chunked on the (B, S, H, D) layout,
+    through strides)."""
     from repro_torch.kernels.flash_attention import ops
     assert ops.kernel_route(dtype, d) == route
     q = torch.empty((2, 4, 24, d), dtype=dtype, device="meta")
@@ -234,12 +238,15 @@ def test_tf32_tma_stride_raises_without_fallback(launched):
 
 @pytest.mark.parametrize("bad", ["d", "heads", "dtype", "stride",
                                  "wgmma_d", "wgmma_dtype", "tma_stride",
-                                 "tf32_d", "tf32_dtype"])
+                                 "tf32_d", "tf32_dtype", "wgmma_d80_dv64"])
 def test_kernel_input_checks(launched, bad):
     """B8's wrappers refuse what their kernels do not take (checked before
-    any build or launch, so it runs here on meta tensors)."""
+    any build or launch, so it runs here on meta tensors): the tensor-core
+    kernel has no instance at (96, 96) or (80, 64), though it has one at
+    (80, 80)."""
     from repro_torch.kernels.flash_attention import ops
     shape_q, shape_kv, dt = (1, 4, 16, 64), (1, 2, 16, 64), torch.float32
+    dv = None
     fn = ops.launch
     if bad == "d":
         shape_q, shape_kv = (1, 4, 16, 12), (1, 2, 16, 12)
@@ -252,6 +259,9 @@ def test_kernel_input_checks(launched, bad):
         fn = ops.launch_wgmma
     if bad == "wgmma_dtype":
         fn = ops.launch_wgmma
+    if bad == "wgmma_d80_dv64":
+        shape_q, shape_kv, dt = (1, 4, 16, 80), (1, 2, 16, 80), torch.bfloat16
+        dv, fn = 64, ops.launch_wgmma
     if bad == "tf32_d":
         shape_q, shape_kv = (1, 4, 16, 96), (1, 2, 16, 96)
         fn = ops.launch_tf32
@@ -266,6 +276,10 @@ def test_kernel_input_checks(launched, bad):
         k = torch.empty((1, 2, 16, 68), dtype=torch.bfloat16,
                         device="meta")[..., :64]
         q = torch.empty(shape_q, dtype=torch.bfloat16, device="meta")
+    v, out = k, torch.empty_like(q)
+    if dv is not None:
+        v = torch.empty((*shape_kv[:3], dv), dtype=dt, device="meta")
+        out = torch.empty((*shape_q[:3], dv), dtype=dt, device="meta")
     with pytest.raises(ValueError):
-        fn(q, k, k, torch.empty_like(q), scale=1.0)
-    assert launched == []
+        fn(q, k, v, out, scale=1.0)
+    assert launched == [] and sum(kernels.LAUNCHES.values()) == 0

@@ -5,12 +5,20 @@ CPU.
 scores of bf16 q and k, an online softmax over tiles of 64 keys, and P.V as
 p_hi.V + p_lo.V (p_hi = bf16(p), p_lo = bf16(p - p_hi)).  It is held to
 ``repro.kernels.flash_attention.ref.flash_attention_ref`` in bfloat16 over
-the sweep of ``tests/test_torch_attention.py`` (its shapes at D = 64 and
-128, x {none, softcap, window, both}) with the check that ``chip_smoke.py``
-phase (h) applies to the kernel: within 1e-5 of the largest |out| plus one
-bf16 ulp (2^-7 relative) of the larger of the two values.  The variant not
-taken, P rounded once to bf16, fails that check at MusicGen-large's head
-width and a prefill length (S 1500); the split passes there.
+the sweep of ``tests/test_torch_attention.py`` (its shapes at D = 64, 80
+and 128, x {none, softcap, window, both}) with the check that
+``chip_smoke.py`` phase (h) applies to the kernel: within 1e-5 of the
+largest |out| plus one bf16 ulp (2^-7 relative) of the larger of the two
+values.  The variant not taken, P rounded once to bf16, fails that check
+at MusicGen-large's head width and a prefill length (S 1500); the split
+passes there.
+
+At D = 80 (Zamba2-2.7B's shared block) the kernel's Q and K tiles are two
+boxes of 64 columns whose second overhangs the row (TMA fills columns
+80-127 with zeros), S runs over five k-steps of 16 columns, and P.V over
+V's first 64 columns and its last 16 by two products.  Zero columns add
+exact zeros to every score, so the arithmetic is the split-P reference's
+on the unpadded operands.
 """
 import numpy as np
 import pytest
@@ -52,7 +60,7 @@ def _run(q, k, v, **kw):
 
 
 @pytest.mark.parametrize("s,hq,hkv", SHAPES)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("opts", OPTS)
 def test_split_p_matches_jax_ref(s, hq, hkv, d, opts):
     (q, k, v), want = _run(*_bf16_qkv(s, d, hq, hkv, seed=s + d), **opts)

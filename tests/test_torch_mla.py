@@ -320,7 +320,7 @@ def launched(monkeypatch):
 
 @pytest.mark.parametrize("dtype,d,dv,route", [
     (torch.bfloat16, 192, 128, "wgmma"), (torch.bfloat16, 192, 192, "simt"),
-    (torch.bfloat16, 128, 64, "simt"), (torch.bfloat16, 80, 80, "simt"),
+    (torch.bfloat16, 128, 64, "simt"), (torch.bfloat16, 80, 80, "wgmma"),
     (torch.float32, 192, 128, "simt"), (torch.float32, 64, 128, "simt"),
     (torch.float32, 128, 128, "tf32")])
 def test_route_by_d_and_dv(launched, dtype, d, dv, route):
