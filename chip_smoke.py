@@ -249,6 +249,32 @@ them:
       bytes and peak memory; Mamba2's chunk scan against its recurrence on
       layer 0's inputs (TOL_SSD), and its decode against its prefill in
       float32 compute (TOL_DECODE_F32).
+  (q) LM training, in a process of its own as phase (o)
+      (``chip_smoke.py --train-phase-q PATH``): (q1) B8's backward kernel
+      (``csrc/flash_attention_bwd.cu``, ``launch_bwd``) at each shape of
+      BWD_CASES, in the model's (B, S, H, D) layout through strides,
+      against ``flash_attention_bwd_ref`` (TOL_ATTN_BWD_F32, one bf16 ulp),
+      a second launch bit-identical, its time beside the bound, the plain
+      backward's and, without softcap or window, SDPA's backward; (q2)
+      every parameter's gradient of train_lm's first loss through B8 and
+      its backward kernel against the plain attention's under autograd
+      (TOL_TRAIN_GRAD), two planted faults read above it (B8-bwd's dK and
+      dV swapped; attention's gradient cut), then
+      ``repro_torch.examples.train_lm`` on the card (reduced qwen2-7b, 300
+      steps at B 8 x 256, a checkpoint every 50) with the launch counters
+      at 0 just before: B8's forward (the SIMT kernel at D 32) and its
+      backward once a layer a step, nothing else; the mean loss of the
+      last Q_WINDOW steps below the first's; then ``--fail-at Q_FAIL_AT``
+      into a fresh directory and the rerun, which restores the last
+      boundary and gives the uninterrupted run's losses bit for bit;
+      tokens/s, ms a step; (q3) MusicGen-large at full width and depth
+      (3.2 B float32 params, bf16 compute, remat "nothing", AdamW
+      float32 moments): Q3_STEPS steps on one batch with the counters at 0
+      just before (B8's tensor-core kernel twice a layer a step, its
+      backward once), every loss finite, the last below the first, the
+      first within TOL_TRAIN_LOSS of the plain attention's, with the plain
+      loss with attention's output zeroed read above it; the peak memory,
+      ms a step, tokens/s.
 
 B1 runs the lane route on rows of at most 8 floats (the LD lists at dim_ld
 2, 5, 8), the ring route on rows of 128 to 1,024 floats with M % 4 == 0
@@ -488,6 +514,71 @@ TOL_LATENTS_SSM = 0.15
 # first P_F32 positions: the same float32 arithmetic in another order (no
 # TF32: serve_main_p turns it off)
 TOL_DECODE_F32, P_F32 = 1e-3, 64
+# phase (q), LM training, in a process of its own as (o) and (p); the
+# child's time limit in seconds
+Q_TIMEOUT = 300
+# B8's backward against its plain version (flash_attention_bwd_ref) on the
+# card: each gradient within TOL_ATTN_BWD_F32 of its largest |entry| (the
+# same float32 quantities summed in another order: dK and dV over every row
+# that sees a key, dQ over its keys); in bfloat16 also one bf16 ulp of the
+# larger of the two values (both round a float32 result to bf16)
+TOL_ATTN_BWD_F32 = 1e-4
+# (name, B, S, Hq, Hkv, D, Dv, dtype, softcap, window, timing reps) of
+# (q1), in the model's (B, S, H, D) layout through strides: train_lm's
+# shape (reduced qwen2-7b, float32, the SIMT forward), MusicGen-large's at
+# (q3)'s batch, Qwen2-7B's at 4k, Gemma2-2b's local and global layers,
+# DeepSeek-V2's MLA prefill, Zamba2-2.7B's shared block, and float32 at D
+# 64 and 128 (the 3xTF32 forward)
+BWD_CASES = (
+    ("flash_attention_bwd_train_lm", 8, 256, 8, 4, 32, 32, torch.float32,
+     0.0, 0, 20),
+    ("flash_attention_bwd_musicgen", 2, 1024, 32, 32, 64, 64,
+     torch.bfloat16, 0.0, 0, 5),
+    ("flash_attention_bwd_qwen2", 1, 4096, 28, 4, 128, 128, torch.bfloat16,
+     0.0, 0, 2),
+    ("flash_attention_bwd_gemma2_w1024", 2, 2048, 8, 4, 256, 256,
+     torch.bfloat16, 50.0, 1024, 3),
+    ("flash_attention_bwd_gemma2_w0", 2, 2048, 8, 4, 256, 256,
+     torch.bfloat16, 50.0, 0, 3),
+    ("flash_attention_bwd_deepseek", 2, 1024, 128, 128, 192, 128,
+     torch.bfloat16, 0.0, 0, 2),
+    ("flash_attention_bwd_zamba2", 2, 2048, 32, 32, 80, 80, torch.bfloat16,
+     0.0, 0, 3),
+    ("flash_attention_bwd_f32_d64", 2, 1024, 32, 32, 64, 64, torch.float32,
+     0.0, 0, 3),
+    ("flash_attention_bwd_f32_d128", 1, 2048, 16, 4, 128, 128,
+     torch.float32, 0.0, 0, 3),
+)
+# (q2): repro_torch.examples.train_lm on the card (reduced qwen2-7b, 300
+# steps at B 8 x 256, a checkpoint every 50), then --fail-at Q_FAIL_AT into
+# a fresh directory and the rerun, which resumes at Q_RESUME_AT; the mean
+# loss of the first and of the last Q_WINDOW steps
+Q_FAIL_AT, Q_RESUME_AT, Q_WINDOW = 130, 100, 20
+# (q2): every parameter's gradient of train_lm's first loss (its init, its
+# first batch) through B8 and B8-bwd against the plain attention's
+# (flash_chunked_ref under autograd): each leaf's max abs difference over
+# its largest |entry|.  Both are float32 throughout (no TF32) and sum in
+# another order; each run plants two faults and holds each reading above
+# the bound: B8-bwd's dK and dV swapped (D = Dv here), and attention's
+# gradient cut (the fault C5 was).  On an H100 (700 W) the sound run reads
+# 2.4e-6, the swap 15.2 and the cut 1.0
+TOL_TRAIN_GRAD = 1e-3
+# (q3): MusicGen-large at full width and depth, Q3_STEPS AdamW steps on one
+# batch of B 2 x S 1,024 (no warm-up: warmup_cosine(Q3_LR, 0, Q3_STEPS));
+# the first loss against the same step's loss with the plain attention
+# (flash_chunked_ref, forward only), relative: both run bf16 compute over
+# 48 layers and round at other points (TOL_LATENTS reads 5e-2 on the
+# hidden states), while the mean NLL over 2,048 tokens averages those
+# differences out.  At random weights the loss barely sees attention: the
+# plain loss with attention's output zeroed in every layer, planted on
+# every run and held above the bound, reads 2.42e-3 and the sound run
+# 5.585e-5 (an H100, 700 W), and the bound sits between them
+Q3_SHAPE, Q3_STEPS, Q3_LR = (2, 1024), 4, 1e-5
+TOL_TRAIN_LOSS = 4e-4
+B8_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+B8_BWD_REPLACES = ("none (new: the backward of "
+                   "src/repro/kernels/flash_attention/kernel.py:86, which is "
+                   "forward only)")
 # decode against prefill: max |logit difference| over the largest |logit|.
 # Both run bf16 compute but round at other points (decode attention sums in
 # float32 over the bf16 cache; B8 rounds its output to bf16), and bf16
@@ -601,11 +692,13 @@ def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def attn_close(got, want, name):
-    """Check B8's output against its plain version (see TOL_ATTN_F32);
-    returns the max abs error."""
+def attn_close(got, want, name, rtol=TOL_ATTN_F32):
+    """Check B8's output (or a gradient of its backward) against its plain
+    version: within ``rtol`` (TOL_ATTN_F32, or TOL_ATTN_BWD_F32) of the
+    largest |entry|, plus one bf16 ulp in bfloat16; returns the max abs
+    error."""
     g, w = got.float(), want.float()
-    tol = TOL_ATTN_F32 * float(w.abs().max())
+    tol = rtol * float(w.abs().max())
     if got.dtype == torch.bfloat16:
         tol = tol + 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
     err = (g - w).abs()
@@ -2061,13 +2154,377 @@ def serve_main(path):
     return 0
 
 
+def train_q1(dev):
+    """(q1) B8's backward kernel alone at each shape of ``BWD_CASES``: the
+    forward through B8, then ``launch_bwd`` against
+    ``flash_attention_bwd_ref`` on the same inputs (TOL_ATTN_BWD_F32), a
+    second launch bit-identical, its time (the three kernels together,
+    CUDA events) beside the bound (the backward's products: the scores,
+    dP, dV, dQ and dK once each), the plain backward's and, without
+    softcap or window, the backward alone of SDPA.  Returns the rows of the
+    ``kernels`` line by name (launches 0: phases (q2) and (q3) fill in
+    those of their paths)."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = {}
+    for name, b, s_len, hq, hkv, d, dv, dt, cap, win, reps in BWD_CASES:
+        q, k, v = (torch.randn((b, s_len, h, w), generator=gen,
+                               device=dev).to(dt)
+                   for h, w in ((hq, d), (hkv, d), (hkv, dv)))
+        dout = torch.randn((b, s_len, hq, dv), generator=gen,
+                           device=dev).to(dt)
+        out = torch.empty_like(dout)
+        scale = d ** -0.5
+        tq, tk, tv, to, tdo = (t_.transpose(1, 2)
+                               for t_ in (q, k, v, out, dout))
+        flash_ops.launch(tq, tk, tv, to, scale=scale, softcap=cap,
+                         window=win)
+        kw = dict(scale=scale, softcap=cap, window=win)
+        kernels.reset_launches()
+        got = flash_ops.launch_bwd(tq, tk, tv, to, tdo, **kw)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["flash_attention_bwd"] == 1
+              and sum(kernels.LAUNCHES.values()) == 1,
+              f"{name}: launches {kernels.LAUNCHES}")
+        want = flash_attention_bwd_ref(tq, tk, tv, to, tdo, **kw)
+        errs = [attn_close(g_, w_, f"{name} d{x}", TOL_ATTN_BWD_F32)
+                for g_, w_, x in zip(got, want, "qkv")]
+        again = flash_ops.launch_bwd(tq, tk, tv, to, tdo, **kw)
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+              f"{name}: a second launch differs")
+        scale_w = [float(w_.float().abs().max()) for w_ in want]
+        del want, again
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: flash_ops.launch_bwd(tq, tk, tv, to, tdo, **kw),
+                     reps)
+        plain_ms = time_ms(lambda: flash_attention_bwd_ref(
+            tq, tk, tv, to, tdo, **kw), 1)
+        torch.cuda.empty_cache()
+        lib_ms = None
+        if not cap and not win:
+            leaves = [t_.detach().clone().requires_grad_() for t_ in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(
+                *[t_.transpose(1, 2) for t_ in leaves], is_causal=True,
+                enable_gqa=True, scale=scale)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                o_lib, leaves, tdo, retain_graph=True), reps)
+            del o_lib, leaves
+        # the products a backward needs: the scores once (D), dP = dO V^T
+        # and dV = P^T dO (Dv each), dQ = dS K and dK = dS^T Q (D each);
+        # float32-accurate products as three TF32 ones, as B8's rows
+        flops = 2.0 * attn_pairs(s_len, win) * (3 * d + 2 * dv) * b * hq
+        if dt == torch.bfloat16:
+            b_ms, b_by = bound(nbytes(q, k, v, out, dout) + nbytes(*got),
+                               flops, BF16_FLOPS_PER_S)
+        else:
+            b_ms, b_by = bound(nbytes(q, k, v, out, dout) + nbytes(*got),
+                               3.0 * flops, TF32_FLOPS_PER_S)
+        err = max(errs)
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": B8_BWD_SOURCE, "replaces": B8_BWD_REPLACES,
+                      "launches": 0, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib_ms}
+        log(f"[q1] {name}: B {b}, S {s_len}, Hq {hq}, Hkv {hkv}, D {d}, Dv "
+            f"{dv}, {str(dt)[6:]}, softcap {cap}, window {win}, (B, S, H, "
+            f"D) strides: {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{b_ms / ms:.2%} of the bound), bound {b_ms:.4f} ms by {b_by}, "
+            f"plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f", SDPA backward {lib_ms:.4f} ms")
+            + f"; max abs err dq / dk / dv {errs[0]:.3e} / {errs[1]:.3e} / "
+            f"{errs[2]:.3e} (largest |entry| {scale_w[0]:.3e} / "
+            f"{scale_w[1]:.3e} / {scale_w[2]:.3e}); a second launch "
+            "bit-identical")
+        del q, k, v, out, dout, got, tq, tk, tv, to, tdo
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _named_leaves(tree, path=""):
+    """[(path, tensor)] of a tree of dicts and lists, in ``tree_leaves``'s
+    order."""
+    if isinstance(tree, dict):
+        return [x for k_, v_ in tree.items()
+                for x in _named_leaves(v_, f"{path}.{k_}" if path else k_)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i_, v_ in enumerate(tree)
+                for x in _named_leaves(v_, f"{path}[{i_}]")]
+    return [(path, tree)]
+
+
+class _SwapKV(torch.autograd.Function):
+    """Identity on (k, v) whose backward hands k's gradient to v and v's to
+    k: put in front of B8, it plants B8-bwd returning dK and dV swapped."""
+
+    @staticmethod
+    def forward(ctx, k, v):
+        return k.clone(), v.clone()
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        return gv, gk
+
+
+def train_q2_grads(cfg, batch, seq, dev):
+    """(q2) gradients through attention on the training path: every
+    parameter's gradient of train_lm's first loss (``init_params(0)``, the
+    first batch) through B8 and its backward kernel against the same
+    model's with the plain attention (``flash_chunked_ref``) under
+    autograd, each leaf within TOL_TRAIN_GRAD of its largest |entry|; B8
+    and B8-bwd once a layer; two planted faults read above the bound."""
+    from repro_torch import kernels
+    from repro_torch.launch.train import make_data_fn
+    from repro_torch.models.attention import flash_chunked, flash_chunked_ref
+    from repro_torch.models.transformer import LMModel
+    params = LMModel(cfg).init_params(0, device=dev)
+    data = make_data_fn(cfg, batch, seq, dev)(0)
+    named = _named_leaves(params)
+    for _, t_ in named:
+        t_.requires_grad_(True)
+
+    def grads(attention):
+        loss, _ = LMModel(cfg, attention=attention).loss_and_aux(
+            params, data["inputs"], data["labels"])
+        return torch.autograd.grad(loss, [t_ for _, t_ in named],
+                                   allow_unused=True, materialize_grads=True)
+
+    def swapped(q, k, v, **kw):
+        return flash_chunked(q, *_SwapKV.apply(k, v), **kw)
+
+    def cut(q, k, v, **kw):
+        return flash_chunked(q, k, v, **kw).detach()
+
+    want = grads(flash_chunked_ref)
+
+    def worst(got):
+        out = (0.0, "")
+        for (n_, _), g_, w_ in zip(named, got, want):
+            e_ = float((g_ - w_).abs().max())
+            top = float(w_.abs().max())
+            out = max(out, (e_ / top if top > 0 else e_, n_))
+        return out
+
+    kernels.reset_launches()
+    sound = worst(grads(flash_chunked))
+    la = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+    faults = {"dK and dV swapped": worst(grads(swapped)),
+              "attention's gradient cut": worst(grads(cut))}
+    log(f"[q2] gradients of the first loss ({len(named)} leaves) through B8 "
+        f"and B8-bwd against the plain attention's under autograd: worst "
+        f"leaf {sound[1]} {sound[0]:.3e} of its largest |entry| "
+        f"(TOL_TRAIN_GRAD {TOL_TRAIN_GRAD:g}); launches {la}; planted "
+        "faults: " + "; ".join(f"{k_} {e_:.3e} at {n_}"
+                               for k_, (e_, n_) in faults.items()))
+    check(sound[0] <= TOL_TRAIN_GRAD,
+          f"[q2] gradients: {sound[0]:.3e} at {sound[1]}")
+    check(sum(la.values()) == 2 * cfg.n_layers
+          and la.get("flash_attention_bwd") == cfg.n_layers,
+          f"[q2] gradients: launches {la}")
+    for name, (e_, n_) in faults.items():
+        check(e_ > TOL_TRAIN_GRAD,
+              f"[q2] planted fault ({name}) read {e_:.3e} at {n_}, within "
+              f"TOL_TRAIN_GRAD")
+    del params, data, want
+    torch.cuda.empty_cache()
+
+
+def train_q2(dev):
+    """(q2) ``repro_torch.examples.train_lm`` on the card: the 300-step run
+    with its loss falling, then ``--fail-at Q_FAIL_AT`` into a fresh
+    directory and the rerun, which resumes at Q_RESUME_AT and whose losses
+    equal the uninterrupted run's bit for bit; each run's launches (B8's
+    forward on the kernel ``kernel_route`` names and its backward, once a
+    layer a step, nothing else).  Returns the uninterrupted run's B8-bwd
+    launches."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_arch
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.train import reduced_variant
+    from repro_torch.runtime.trainer import SimulatedFailure
+    cfg = reduced_variant(get_arch("qwen2-7b"))
+    steps_ = int(train_lm.ARGS[train_lm.ARGS.index("--steps") + 1])
+    batch = int(train_lm.ARGS[train_lm.ARGS.index("--batch") + 1])
+    seq = int(train_lm.ARGS[train_lm.ARGS.index("--seq") + 1])
+    route = flash_ops.kernel_route(getattr(torch, cfg.compute_dtype),
+                                   cfg.resolved_head_dim)
+    fwd_key = f"flash_attention_{route}"
+    train_q2_grads(cfg, batch, seq, dev)
+
+    def launches_ok(la, n_steps, label):
+        want = {fwd_key: cfg.n_layers * n_steps,
+                "flash_attention_bwd": cfg.n_layers * n_steps}
+        got = {k_: v_ for k_, v_ in la.items() if v_}
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        return got
+
+    with tempfile.TemporaryDirectory() as d:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = train_lm.main(["--ckpt-dir", os.path.join(d, "a")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        la = launches_ok(kernels.LAUNCHES, steps_, "[q2] train_lm")
+        losses = [h_["loss"] for h_ in hist]
+        first = sum(losses[:Q_WINDOW]) / Q_WINDOW
+        last = sum(losses[-Q_WINDOW:]) / Q_WINDOW
+        check(len(hist) == steps_ and all(math.isfinite(x) for x in losses)
+              and last < first, f"[q2] losses: first {first}, last {last}")
+        ms = sorted(h_["sec"] for h_ in hist[1:])
+        ms_step = 1e3 * ms[len(ms) // 2]
+        log(f"[q2] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+            f"{cfg.compute_dtype}): {steps_} steps at B {batch} x {seq} in "
+            f"{wall:.1f}s; mean loss of the first {Q_WINDOW} steps "
+            f"{first:.4f}, of the last {Q_WINDOW} {last:.4f} (step 0 "
+            f"{losses[0]:.4f}, step {steps_ - 1} {losses[-1]:.4f}); median "
+            f"{ms_step:.2f} ms a step, {batch * seq / ms_step * 1e3:.0f} "
+            f"tokens/s (the first step {1e3 * hist[0]['sec']:.0f} ms); "
+            f"launches {la} (B8 forward on the {B8_LABEL[route]} kernel)")
+
+        kernels.reset_launches()
+        crash = os.path.join(d, "b")
+        try:
+            train_lm.main(["--ckpt-dir", crash, "--fail-at", str(Q_FAIL_AT)])
+            check(False, f"[q2] --fail-at {Q_FAIL_AT} did not fail")
+        except SimulatedFailure:
+            pass
+        launches_ok(kernels.LAUNCHES, Q_FAIL_AT, "[q2] --fail-at run")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        resumed = train_lm.main(["--ckpt-dir", crash])
+        wall_r = time.perf_counter() - t0
+        start = resumed[0]["step"]
+        launches_ok(kernels.LAUNCHES, steps_ - start, "[q2] rerun")
+        # a straggler alarm between Q_RESUME_AT and Q_FAIL_AT snapshots a
+        # later boundary, which the rerun then restores
+        check(Q_RESUME_AT <= start <= Q_FAIL_AT
+              and [h_["step"] for h_ in resumed] == list(range(start, steps_)),
+              f"[q2] the rerun ran steps {start}..{resumed[-1]['step']}")
+        ref = {h_["step"]: h_["loss"] for h_ in hist}
+        diff = [h_["step"] for h_ in resumed if h_["loss"] != ref[h_["step"]]]
+        check(not diff, f"[q2] the resumed losses differ at steps {diff[:8]}")
+        log(f"[q2] --fail-at {Q_FAIL_AT}: failed before step {Q_FAIL_AT}; "
+            f"the rerun restored step {start} (the periodic checkpoint: "
+            f"{Q_RESUME_AT}) and ran steps {start}-{steps_ - 1} in "
+            f"{wall_r:.1f}s, every loss bit for bit the uninterrupted run's "
+            f"({len(resumed)} steps)")
+    return la.get("flash_attention_bwd", 0)
+
+
+def _attention_off(q, k, v, **kw):
+    """A planted fault: attention's output zeroed, (B, S, Hq, Dv)."""
+    return q.new_zeros((*q.shape[:-1], v.shape[-1]))
+
+
+def train_q3(dev):
+    """(q3) MusicGen-large at full width and depth: Q3_STEPS AdamW steps
+    (``make_train_step``, remat "nothing") on one batch with the launch
+    counters at 0 just before: every loss finite, the last below the
+    first, the first within TOL_TRAIN_LOSS of the plain attention's loss
+    on the same weights and the plain loss with attention's output
+    zeroed (a planted fault) outside it; B8's forward twice a layer a step
+    (once more under remat) on the tensor-core kernel, its backward once;
+    the peak memory, ms a step, tokens/s.  Returns the B8-bwd launches."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.launch.train import make_data_fn
+    from repro_torch.models.attention import flash_chunked_ref
+    from repro_torch.models.transformer import LMModel
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = _o_config("musicgen-large")
+    b, s_len = Q3_SHAPE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LMModel(cfg)
+    params = model.init_params(0, device=dev)
+    n_par = sum(t_.numel() for t_ in tree_leaves(params))
+    batch = make_data_fn(cfg, b, s_len, dev)(0)
+    with torch.no_grad():
+        ref_loss, _ = LMModel(cfg, attention=flash_chunked_ref).loss_and_aux(
+            params, batch["inputs"], batch["labels"])
+        # the planted fault: attention's output zeroed in every layer
+        off_loss, _ = LMModel(cfg, attention=_attention_off).loss_and_aux(
+            params, batch["inputs"], batch["labels"])
+    ref_loss = float(ref_loss)
+    off_rel = abs(float(off_loss) - ref_loss) / abs(ref_loss)
+    opt = make_optimizer(cfg, peak_lr=Q3_LR, warmup=0, total=Q3_STEPS)
+    step_fn = make_train_step(model, opt)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    t_set = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, times = [], []
+    for _ in range(Q3_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    la = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+    want = {"flash_attention_wgmma": 2 * cfg.n_layers * Q3_STEPS,
+            "flash_attention_bwd": cfg.n_layers * Q3_STEPS}
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms_step = 1e3 * sum(times[1:]) / (len(times) - 1)
+    log(f"[q3] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {n_par / 1e9:.3f} B {cfg.param_dtype} "
+        f"params, {cfg.compute_dtype} compute, remat {cfg.remat_policy!r}, "
+        f"AdamW {cfg.opt_state_dtype} moments at lr {Q3_LR} with no "
+        f"warm-up; set-up (threefry init, the plain attention's loss) "
+        f"{t_set:.1f}s; {Q3_STEPS} steps on one batch of B {b} x S {s_len}: "
+        "losses " + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; the plain attention's first loss {ref_loss:.5f} ({rel:.3e} "
+        f"relative; TOL_TRAIN_LOSS {TOL_TRAIN_LOSS:g}; with attention's "
+        f"output zeroed {float(off_loss):.5f}, {off_rel:.3e}); "
+        f"{ms_step:.1f} ms a step after the first ({1e3 * times[0]:.1f} "
+        f"ms), {b * s_len / ms_step * 1e3:.0f} tokens/s; peak memory "
+        f"{peak:.1f} GB; launches {la}")
+    check(la == want, f"[q3] launches {la}, expected {want}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and rel <= TOL_TRAIN_LOSS,
+          f"[q3] losses {losses}, plain {ref_loss} ({rel:.3e})")
+    check(off_rel > TOL_TRAIN_LOSS,
+          f"[q3] the planted fault (attention off) read {off_rel:.3e}, "
+          "within TOL_TRAIN_LOSS")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    return la.get("flash_attention_bwd", 0)
+
+
+def train_main_q(path):
+    """Phase (q), run as ``chip_smoke.py --train-phase-q PATH`` by
+    :func:`serve_phase`: (q1) B8's backward kernel at each shape, (q2)
+    ``train_lm`` with its restart, (q3) MusicGen-large; writes the B8-bwd
+    rows as JSON to ``path``."""
+    dev = _serve_setup("q")
+    t_q = time.perf_counter()
+    rows = train_q1(dev)
+    rows["flash_attention_bwd_train_lm"]["launches"] = train_q2(dev)
+    rows["flash_attention_bwd_musicgen"]["launches"] = train_q3(dev)
+    log(f"[q] phase (q) took {time.perf_counter() - t_q:.1f}s in its process")
+    with open(path, "w") as f:
+        json.dump(list(rows.values()), f)
+    return 0
+
+
 SERVE_PHASES = {"o": ("--serve-phase", O_TIMEOUT),
-                "p": ("--serve-phase-p", P_TIMEOUT)}
+                "p": ("--serve-phase-p", P_TIMEOUT),
+                "q": ("--train-phase-q", Q_TIMEOUT)}
 
 
 def serve_phase(phase):
-    """Phase (o) or (p) in a child process (see ``serve_main`` and
-    ``serve_main_p``); returns its rows of the ``kernels`` line."""
+    """Phase (o), (p) or (q) in a child process (see ``serve_main``,
+    ``serve_main_p`` and ``train_main_q``); returns its rows of the
+    ``kernels`` line."""
     import tempfile
     flag, timeout = SERVE_PHASES[phase]
     torch.cuda.empty_cache()
@@ -2093,6 +2550,8 @@ def main():
         return serve_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-phase-p":
         return serve_main_p(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-phase-q":
+        return train_main_q(sys.argv[2])
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import kernels
@@ -2381,17 +2840,23 @@ def main():
         """Device ms per call of each kernel and memset that ``fn`` runs,
         by name, from a profiler trace of ``reps`` calls, and how many
         events the trace holds of each (a kernel of one launch a call:
-        ``reps``, unless the trace lost some)."""
+        ``reps``, unless the trace lost some).  A trace that lost every
+        device event is taken once more."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and ev.self_device_time_total > 0]
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0]
+            if evs:
+                break
+            log("    the profiler's trace holds no device event: "
+                "taken again")
         check(evs, "the profiler saw no kernel")
         return ({ev.key: ev.self_device_time_total / 1e3 / reps for ev in evs},
                 {ev.key: ev.count for ev in evs})
@@ -4442,6 +4907,10 @@ def main():
     # ---- (p) serving for MLA, Mamba2 and Zamba2 ----------------------------
     log(f"[p] starts {time.perf_counter() - t_start:.1f}s into the script")
     out.extend(serve_phase("p"))
+
+    # ---- (q) LM training ---------------------------------------------------
+    log(f"[q] starts {time.perf_counter() - t_start:.1f}s into the script")
+    out.extend(serve_phase("q"))
 
     log(f"    total {time.perf_counter() - t_start:.1f}s")
 

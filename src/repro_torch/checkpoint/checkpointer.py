@@ -193,9 +193,13 @@ def _children(tree):
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """A host copy of ``leaf``: the write thread serialises it while the
+    caller goes on updating the tree in place, so a CPU tensor's memory is
+    never shared (``.cpu()`` already copies a card's)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        arr = leaf.detach().cpu().numpy()
+        return arr.copy() if leaf.device.type == "cpu" else arr
+    return np.array(leaf)
 
 
 def _flatten(tree, prefix="") -> dict:

@@ -6,6 +6,11 @@ uint32 array of shape (2,)).  The port carries those words, so its counter
 hash folds the same salt and draws the same candidates and negatives.
 The reverse-edge cache (``rev_idx`` (N, c_hd_rev), ``rev_step``) crosses
 both ways, so a bridged state keeps the JAX package's rebuild cadence.
+
+The LM bridges unstack the JAX model's layers into the port's per-layer
+lists: parameters (and a JAX gradient tree, which has their structure),
+caches, and an AdamW state whose moments mirror the parameters, int8
+QTensor moments included (``adamw_state_from_jax``).
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import torch
 
 from repro_torch.core.funcsne import (FuncSNEConfig, FuncSNEState,
                                       resolve_device)
+from repro_torch.optim.optimizers import AdamWState
+from repro_torch.optim.quantized import QTensor
 
 _DTYPES = {
     "Y": np.float32, "vel": np.float32, "gains": np.float32,
@@ -63,12 +70,29 @@ def state_to_numpy(st: FuncSNEState) -> dict:
     return out
 
 
+def _is_qtensor(x) -> bool:
+    """A JAX ``repro.optim.quantized.QTensor`` (or the port's): int8
+    payload ``q`` and float32 ``scale``."""
+    return hasattr(x, "q") and hasattr(x, "scale")
+
+
+def _leaf_array(x):
+    return np.asarray(x.q if _is_qtensor(x) else x)
+
+
 def _torch_tree(x, dev, index=None):
     """A nested dict of numpy arrays (or one array) as torch tensors on
     ``dev``, each leaf's row ``index`` if given; ml_dtypes' bfloat16
-    becomes torch bfloat16, every other dtype stays as it is."""
+    becomes torch bfloat16, every other dtype stays as it is.  A QTensor
+    leaf becomes the port's ``QTensor`` of its payload and scales (a 0-d
+    source's (1,) payload reshaped to its recorded shape ())."""
     if isinstance(x, Mapping):
         return {k: _torch_tree(v, dev, index) for k, v in x.items()}
+    if _is_qtensor(x):
+        q = _torch_tree(x.q, dev, index)
+        if index is None and tuple(x.shape) == ():
+            q = q.reshape(())
+        return QTensor(q=q, scale=_torch_tree(x.scale, dev, index))
     a = np.asarray(x)
     a = np.array(a if index is None else a[index])
     if a.dtype.name == "bfloat16":
@@ -80,7 +104,7 @@ def _n_stacked(tree) -> int:
     """The leading (layer) dim of the first leaf of a stacked tree."""
     while isinstance(tree, Mapping):
         tree = next(iter(tree.values()))
-    return len(np.asarray(tree))
+    return len(_leaf_array(tree))
 
 
 def _layer(blocks, dev, i):
@@ -94,7 +118,7 @@ def _layer(blocks, dev, i):
         while isinstance(leaf, Mapping):
             leaf = next(iter(leaf.values()))
         layer["mamba"] = [_torch_tree(stacked, dev, (i, j))
-                          for j in range(np.asarray(leaf).shape[1])]
+                          for j in range(_leaf_array(leaf).shape[1])]
     return layer
 
 
@@ -131,3 +155,16 @@ def lm_cache_from_jax(cache_np, device="cuda") -> dict:
     numpy, whose ``blocks`` leaves are stacked over the layers (Zamba2's
     ``mamba`` leaves over (L, e))."""
     return _unstacked(cache_np, "blocks", resolve_device(device))
+
+
+def adamw_state_from_jax(state_np, device="cuda") -> AdamWState:
+    """The port's ``AdamWState`` from a JAX ``repro.optim.adamw`` state
+    given as numpy (``jax.tree.map(np.asarray, state)``): ``count`` as a
+    0-d int32 tensor, and ``m`` and ``v``, which mirror the JAX parameter
+    tree, unstacked as ``lm_params_from_jax`` unstacks it; int8 moments
+    (QTensor leaves) carry their payloads and scales across, a layer's
+    slice of each."""
+    dev = resolve_device(device)
+    return AdamWState(count=_torch_tree(state_np.count, dev),
+                      m=_unstacked(state_np.m, "blocks", dev),
+                      v=_unstacked(state_np.v, "blocks", dev))

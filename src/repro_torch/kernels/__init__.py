@@ -38,6 +38,7 @@ LAUNCHES = {
     "flash_attention_wgmma": 0,
     "flash_attention_tf32": 0,
     "flash_attention_simt": 0,
+    "flash_attention_bwd": 0,
 }
 
 

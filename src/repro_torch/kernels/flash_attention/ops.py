@@ -14,6 +14,12 @@ kernel of ``csrc/flash_attention.cu`` (``launch_simt``,
 in steps of 8: float32 at the other widths, and bfloat16 at the pairs
 outside ``WGMMA_DV`` (D 96, say, or D != Dv but MLA's).  None stands in
 for another: a tensor that the chosen kernel does not take raises.
+
+``launch_bwd`` runs B8's backward (``csrc/flash_attention_bwd.cu``: three
+SIMT kernels, float32 and bfloat16, D and Dv 8..256 in steps of 8), the
+gradients of every route's forward; it counts one launch a call under
+``LAUNCHES["flash_attention_bwd"]``.  Its plain version is
+``ref.flash_attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -158,6 +164,73 @@ def launch(q, k, v, out, *, scale: float, softcap: float = 0.0,
     fn = {"wgmma": launch_wgmma, "tf32": launch_tf32,
           "simt": launch_simt}[kernel_route(q.dtype, q.shape[3], v.shape[3])]
     fn(q, k, v, out, scale=scale, softcap=softcap, window=window)
+
+
+class _FlashBwdArgs(ctypes.Structure):
+    """Field for field the ``FlashBwdArgs`` struct of
+    csrc/flash_attention_bwd.cu."""
+    _fields_ = [
+        ("q", _P), ("k", _P), ("v", _P), ("o", _P), ("g_o", _P),
+        ("g_q", _P), ("g_k", _P), ("g_v", _P), ("lse", _P), ("delta", _P),
+        ("q_st", _I64 * 3), ("k_st", _I64 * 3), ("v_st", _I64 * 3),
+        ("o_st", _I64 * 3), ("go_st", _I64 * 3), ("gq_st", _I64 * 3),
+        ("gk_st", _I64 * 3), ("gv_st", _I64 * 3),
+        ("b", _I), ("hq", _I), ("hkv", _I), ("s", _I), ("d", _I),
+        ("dv", _I), ("window", _I), ("scale", _F), ("softcap", _F),
+        ("bf16", _I),
+    ]
+
+
+def launch_bwd(q, k, v, out, dout, *, scale: float, softcap: float = 0.0,
+               window: int = 0):
+    """B8's backward kernel: the gradients of q, k and v, given the
+    forward's ``out`` and the gradient ``dout`` that reaches it.
+
+    q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv), out and dout (B,
+    Hq, S, Dv): float32 or bfloat16 views on one card with a unit last
+    stride, any (b, h, s) strides; D and Dv each 8..256 in steps of 8.
+    Returns (dq, dk, dv) laid out as q, k and v (``torch.empty_like``) in
+    their dtype.  Everything else raises before any launch."""
+    _check_common(q, k, v, out)
+    req = _build.require
+    b, hq, s, d = q.shape
+    dv = v.shape[3]
+    req(dout.dtype == q.dtype, f"dout must have q's dtype {q.dtype}")
+    req(tuple(dout.shape) == (b, hq, s, dv),
+        f"dout must be ({b}, {hq}, {s}, {dv}), got {tuple(dout.shape)}")
+    req(dout.stride(3) == 1, "dout must have a unit stride over Dv")
+    for name, w in (("D", d), ("Dv", dv)):
+        req(8 <= w <= 256 and w % 8 == 0,
+            f"{name} = {w}: B8's backward takes 8..256 in steps of 8")
+    req(_build.kernel_device(q, k, v, out, dout) == "cuda",
+        "B8's backward runs on one CUDA device")
+    g_q, g_k, g_v = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    _run_bwd((q, k, v, out, dout, g_q, g_k, g_v), lse,
+             torch.empty_like(lse), scale, softcap, window)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return g_q, g_k, g_v
+
+
+def _run_bwd(tensors, lse, delta, scale, softcap, window) -> None:
+    """The C call of ``launch_bwd`` on (q, k, v, out, dout, dq, dk, dv)
+    and the (B, Hq, S) float32 scratch."""
+    q, k, v = tensors[:3]
+    b, hq, s, d = q.shape
+    a = _FlashBwdArgs(
+        lse=lse.data_ptr(), delta=delta.data_ptr(), b=b, hq=hq,
+        hkv=k.shape[1], s=s, d=d, dv=v.shape[3], window=int(window),
+        scale=float(scale), softcap=float(softcap), bf16=_DTYPES[q.dtype])
+    for (ptr, st), t in zip((("q", "q_st"), ("k", "k_st"), ("v", "v_st"),
+                             ("o", "o_st"), ("g_o", "go_st"),
+                             ("g_q", "gq_st"), ("g_k", "gk_st"),
+                             ("g_v", "gv_st")), tensors):
+        setattr(a, ptr, t.data_ptr())
+        getattr(a, st)[:] = t.stride()[:3]
+    with torch.cuda.device(q.device):
+        _build.call("repro_flash_attention_bwd",
+                    [ctypes.POINTER(_FlashBwdArgs), _P], ctypes.byref(a),
+                    _build.stream_of(q))
 
 
 def flash_attention(q, k, v, *, scale: float | None = None,

@@ -1,5 +1,7 @@
-"""Plain PyTorch version of causal GQA attention (B8): the materialised
-softmax of ``repro.kernels.flash_attention.ref``."""
+"""Plain PyTorch versions of causal GQA attention (B8): the materialised
+softmax of ``repro.kernels.flash_attention.ref``, the arithmetic of the two
+tensor-core kernels, and B8's backward (``flash_attention_bwd_ref``, the
+plain version of ``csrc/flash_attention_bwd.cu``)."""
 from __future__ import annotations
 
 import torch
@@ -40,6 +42,51 @@ def flash_attention_ref(q, k, v, *, scale: float | None = None,
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
 
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, *, scale: float,
+                            softcap: float = 0.0, window: int = 0):
+    """The gradients of ``flash_attention_ref`` by explicit formulas.
+
+    Layout and arguments as ``flash_attention_ref``; ``out`` (B, Hq, S, Dv)
+    is the forward's output and ``dout`` the gradient that reaches it.  In
+    float32: each row's log-sum-exp recomputed over the keys it sees,
+    ``delta = sum(dout * out)`` a row, P = exp(s - lse), dV = P^T dO, dP =
+    dO V^T, dS = P (dP - delta), times ``1 - tanh(raw / cap)^2`` under a
+    softcap (``raw`` the scaled score before the cap), dQ = scale dS K and
+    dK = scale dS^T Q; dK and dV summed over the ``Hq / Hkv`` query heads of
+    their group.  Returns (dq, dk, dv) in the dtypes of q, k and v.
+    """
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    qf, of, dof = q.float(), out.float(), dout.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    raw = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    s = raw
+    if softcap > 0.0:
+        t = torch.tanh(raw / softcap)
+        s = softcap * t
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    mask = cols <= rows
+    if window > 0:
+        mask = mask & (cols > rows - window)
+    s = torch.where(mask, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+    if softcap > 0.0:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(B, Hkv, group, S, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, group, S, v.shape[3]).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 def flash_attention_split_p_ref(q, k, v, *, scale: float | None = None,
                                 softcap: float = 0.0, window: int = 0,

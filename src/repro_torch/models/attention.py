@@ -9,7 +9,11 @@ kernel for bf16 at D = Dv 64, 128 and 256 and at (192, 128), its 3xTF32
 counterpart for float32 at D = Dv 64 and 128, the SIMT kernel otherwise)
 through strides, with no transpose copy; on a CPU tensor it runs
 ``flash_chunked_ref``, the plain online softmax over KV chunks of the JAX
-function, which also runs on the card as B8's plain version.
+function, which also runs on the card as B8's plain version.  It goes
+through ``FlashAttention``, an autograd Function whose backward is B8's
+backward kernel on the card (``csrc/flash_attention_bwd.cu``) and its
+plain version ``flash_attention_bwd_ref`` on the CPU, so a loss
+differentiates through attention on either device.
 
 Decode (``gqa_apply`` with a cache) writes the new token's K and V into
 the cache at ``cur_len - 1`` in place and attends over the cache with
@@ -32,6 +36,7 @@ import torch
 from repro_torch.core import threefry
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        matmul_cd, proj_heads, rms_norm)
 
@@ -93,30 +98,78 @@ def flash_chunked_ref(q, k, v, *, chunk_q: int = 0, chunk_k: int = 512,
     return out.reshape(B, Sq, Hq, Dv).to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention with its gradient, in the model's (B, S, H, D)
+    layout: ``FlashAttention.apply(q, k, v, kw, save)``.
+
+    Forward: B8 on the card (the kernel ``kernel_route`` names, through
+    strides) and ``flash_chunked_ref(q, k, v, **kw)`` on the CPU.
+    Backward: B8's backward kernel on the card (``launch_bwd``) and its
+    plain version ``flash_attention_bwd_ref`` on the CPU, from the saved q,
+    k, v and output.  ``save`` (grad mode on and an input that requires
+    grad, decided by the caller: inside ``forward`` grad mode is off) keeps
+    those four for the backward; without it nothing is kept, and a call
+    under ``no_grad`` or ``inference_mode`` runs exactly the forward's
+    launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, save):
+        if _build.kernel_device(q, k, v) == "cpu":
+            out = flash_chunked_ref(q, k, v, **kw)
+        else:
+            B, S, Hq, _ = q.shape
+            out = torch.empty((B, S, Hq, v.shape[-1]), dtype=q.dtype,
+                              device=q.device)
+            flash_ops.launch(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), out.transpose(1, 2),
+                             scale=kw["scale"], softcap=kw["cap"],
+                             window=kw["window"])
+        if save:
+            ctx.save_for_backward(q, k, v, out)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        args = [t.transpose(1, 2) for t in (q, k, v, out, dout)]
+        kw = dict(scale=ctx.kw["scale"], softcap=ctx.kw["cap"],
+                  window=ctx.kw["window"])
+        if _build.kernel_device(q, k, v) == "cpu":
+            grads = flash_attention_bwd_ref(*args, **kw)
+        else:
+            grads = flash_ops.launch_bwd(*args, **kw)
+        dq, dk, dv = (g.transpose(1, 2) for g in grads)
+        return dq, dk, dv, None, None
+
+
 def flash_chunked(q, k, v, *, chunk_q: int = 0, chunk_k: int = 512,
                   scale: float, cap: float = 0.0, window: int = 0,
                   q_offset=0, score_budget_bytes: int = 192 * 2 ** 20,
                   seq_shards: int = 1):
     """Causal GQA attention in the (B, S, H, D) layout, values (B, S, Hkv,
-    Dv): B8 on the card, ``flash_chunked_ref`` on the CPU (arguments as
-    there).  B8 takes self-attention only: a nonzero ``q_offset`` raises
-    ``NotImplementedError`` on the card, and a (D, Dv) that no kernel of
-    B8 takes raises ``ValueError`` before any launch."""
-    if _build.kernel_device(q, k, v) == "cpu":
-        return flash_chunked_ref(
-            q, k, v, chunk_q=chunk_q, chunk_k=chunk_k, scale=scale, cap=cap,
-            window=window, q_offset=q_offset,
-            score_budget_bytes=score_budget_bytes, seq_shards=seq_shards)
-    if (torch.is_tensor(q_offset) or q_offset != 0) or k.shape[1] != q.shape[1]:
+    Dv), through ``FlashAttention``: B8 and its backward kernel on the
+    card, ``flash_chunked_ref`` and ``flash_attention_bwd_ref`` on the CPU
+    (arguments as ``flash_chunked_ref``).  B8 takes self-attention only: a
+    nonzero ``q_offset`` raises ``NotImplementedError`` on the card (on the
+    CPU it runs ``flash_chunked_ref`` itself, differentiated by autograd),
+    and a (D, Dv) that no kernel of B8 takes raises ``ValueError`` before
+    any launch."""
+    kw = dict(chunk_q=chunk_q, chunk_k=chunk_k, scale=scale, cap=cap,
+              window=window, q_offset=q_offset,
+              score_budget_bytes=score_budget_bytes, seq_shards=seq_shards)
+    offset = (torch.is_tensor(q_offset) or q_offset != 0
+              or k.shape[1] != q.shape[1])
+    if offset:
+        if _build.kernel_device(q, k, v) == "cpu":
+            return flash_chunked_ref(q, k, v, **kw)
         raise NotImplementedError("B8 takes causal self-attention from "
                                   "position 0 (q_offset = 0, Sq == Sk)")
-    B, S, Hq, _ = q.shape
-    out = torch.empty((B, S, Hq, v.shape[-1]), dtype=q.dtype,
-                      device=q.device)
-    flash_ops.launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                     out.transpose(1, 2), scale=scale, softcap=cap,
-                     window=window)
-    return out
+    save = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, kw, save)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *, scale: float,

@@ -9,10 +9,11 @@ product.  The initialisers draw ``jax.random.normal`` through
 ``normal``'s 4 ulps.
 
 ``matmul_cd`` is the LM forward's product in the compute dtype, rounded
-once from a float32 sum as XLA's dot is.
+once from a float32 sum as XLA's dot is.  ``cross_entropy_chunked`` is the
+train loss over sequence chunks.
 
-``ShardCtx`` and ``cross_entropy_chunked`` are not ported: the port runs
-one device (no sharding constraints) and only the forward pass.
+``ShardCtx`` is not ported: the port runs one device (no sharding
+constraints).
 """
 from __future__ import annotations
 
@@ -154,3 +155,46 @@ def dense_init(key, shape, dtype, fan_in: Optional[int] = None, *,
 
 def embed_init(key, shape, dtype, *, device=None):
     return _normal_init(key, shape, dtype, None, device)
+
+
+# --------------------------------------------------------------------------
+# Loss
+
+
+def cross_entropy_chunked(logits_fn, hidden, labels, *, n_chunks: int = 1,
+                          final_softcap: float = 0.0, valid=None):
+    """Causal-LM CE computed over sequence chunks.
+
+    logits_fn: hidden chunk (B, s, D) -> logits (B, s, V).  Chunking bounds
+    the peak (B, s, V) activation (256k-vocab archs).  Logits, softcap,
+    log-sum-exp and the ``valid`` mask (B, S) in float32; the chunks' sums
+    added in order from zero, as the JAX scan adds them.
+    Returns (mean_nll, n_tokens).
+    """
+    B, S, _ = hidden.shape
+    assert S % n_chunks == 0
+    s = S // n_chunks
+    if valid is None:
+        valid = torch.ones((B, S), dtype=torch.bool, device=hidden.device)
+    valid = valid.float()
+
+    def one(h, y, v):
+        logits = logits_fn(h).float()
+        if final_softcap:
+            logits = final_softcap * torch.tanh(logits / final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, y[..., None].long())[..., 0]
+        nll = (lse - gold) * v
+        return nll.sum(), v.sum()
+
+    if n_chunks == 1:
+        tot, cnt = one(hidden, labels, valid)
+    else:
+        tot = cnt = torch.zeros((), dtype=torch.float32,
+                                device=hidden.device)
+        for i in range(n_chunks):
+            t, c = one(hidden[:, i * s:(i + 1) * s],
+                       labels[:, i * s:(i + 1) * s],
+                       valid[:, i * s:(i + 1) * s])
+            tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp_min(1.0), cnt

@@ -24,23 +24,77 @@ that cache (the JAX step returns a new one); its ``cur_len`` is a 0-d
 integer tensor on the model's device, and nothing in the step reads a
 device value on the host.
 
-Not ported yet (ROADMAP A8.6): the loss (``loss_and_aux``),
-rematerialisation and the sharding plumbing (``param_specs``,
-``cache_specs``).
+``loss_and_aux`` (``apply_train``) is the train loss: the mean NLL of
+``cross_entropy_chunked`` plus, for MoE, the router losses weighted by
+``router_aux_weight`` and ``router_z_weight``.  It differentiates on either
+device: on the card B8's forward and backward kernels carry attention
+(``models.attention.FlashAttention``).  Rematerialisation: with
+``cfg.remat``, a forward that records a backward and no cache, each
+stacked block's apply (not MoE's dense first layer, as in JAX) runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, the counterpart
+of the JAX scan body's ``jax.checkpoint``: ``remat_policy="nothing"`` keeps
+only the block's input, ``"dots_no_batch"`` also the outputs of its 2-D
+matrix products (``aten.mm`` / ``aten.addmm``: the projections; not the
+batched expert and per-head products), ``"none"`` turns it off.  The
+recomputation runs B8's forward a second time a layer.  A forward that
+records no backward (grad mode off, or nothing requiring grad) runs
+without the checkpoint, so serving and ``hidden_states`` launch what they
+launched before.
+
+Not ported: the sharding plumbing (``param_specs``, ``cache_specs``): the
+port runs one device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import threefry
 from repro_torch.core.funcsne import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import flash_chunked
-from repro_torch.models.common import (dtype_of, embed_init, matmul_cd,
-                                       rms_norm)
+from repro_torch.models.common import (cross_entropy_chunked, dtype_of,
+                                       embed_init, matmul_cd, rms_norm)
+from repro_torch.optim.optimizers import tree_leaves
+
+# the products "dots_no_batch" keeps: 2-D matrix products, nothing batched
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_no_batch(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _builds_graph(p, h) -> bool:
+    """Whether the stack's forward records a backward: grad mode on and
+    the stream or a weight requiring grad.  Remat only matters then; a
+    forward that records none (serving, ``hidden_states`` on weights that
+    need no grad) runs the blocks as they are."""
+    return torch.is_grad_enabled() and (
+        h.requires_grad or any(t.requires_grad for t in tree_leaves(p)))
+
+
+def _remat(apply_block, policy):
+    """``apply_block`` under a non-reentrant checkpoint with ``policy``
+    ("nothing" or "dots_no_batch")."""
+    kw = {}
+    if policy == "dots_no_batch":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_no_batch)
+    elif policy != "nothing":
+        raise ValueError(f"unknown remat_policy {policy!r}")
+
+    def run(bp, hh, cfg, **block_kw):
+        return checkpoint(apply_block, bp, hh, cfg, use_reentrant=False,
+                          **kw, **block_kw)
+    return run
+
 
 class LMModel:
     def __init__(self, cfg: ArchConfig, *, attention=flash_chunked):
@@ -144,6 +198,9 @@ class LMModel:
         if cfg.family == "hybrid":
             def apply_block(bp, hh, cfg_, **kw):
                 return B.zamba_super_apply(bp, p["shared"], hh, cfg_, **kw)
+        if (cfg.remat and not decode and cfg.remat_policy != "none"
+                and _builds_graph(p, h)):
+            apply_block = _remat(apply_block, cfg.remat_policy)
         if cfg.family == "moe" and cfg.moe_dense_first:
             h, _, _ = B.moe_block_apply(
                 p["first"], h, cfg, positions=positions,
@@ -173,6 +230,30 @@ class LMModel:
         positions = torch.arange(S, device=h.device)[None, :]
         h, _, _ = self._run_stack(p, h, positions=positions)
         return rms_norm(h, p["final_norm"], plus_one=self.cfg.norm_plus_one)
+
+    def apply_train(self, p, inputs, labels, valid=None):
+        """Causal-LM loss (alias of loss_and_aux)."""
+        return self.loss_and_aux(p, inputs, labels, valid=valid)
+
+    def loss_and_aux(self, p, inputs, labels, valid=None):
+        """Train loss including MoE aux terms (the train step's entry
+        point): ``(total, metrics)``, the metrics ``nll``, ``tokens`` and
+        the router losses, 0-d float32 tensors."""
+        cfg = self.cfg
+        h = self._embed_in(p, inputs)
+        S = h.shape[1]
+        positions = torch.arange(S, device=h.device)[None, :]
+        h, _, aux = self._run_stack(p, h, positions=positions)
+        h = rms_norm(h, p["final_norm"], plus_one=cfg.norm_plus_one)
+        nll, n_tok = cross_entropy_chunked(
+            self._logits_fn(p), h, labels, n_chunks=cfg.logits_chunks,
+            final_softcap=cfg.final_softcap, valid=valid)
+        total = nll
+        if cfg.is_moe:
+            total = total + cfg.router_aux_weight * aux["load_balance"] \
+                + cfg.router_z_weight * aux["router_z"]
+        metrics = {"nll": nll, "tokens": n_tok, **aux}
+        return total, metrics
 
     # ------------------------------------------------------------------
     # Serving
