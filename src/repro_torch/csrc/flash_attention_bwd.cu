@@ -1,7 +1,10 @@
 // B8's backward: dQ, dK and dV of causal GQA flash attention, SIMT, fp32
 // and bf16, D (q and k) and Dv (v and out) each from 8 to 256 in steps of 8.
-// kernels/flash_attention/ops.py (launch_bwd) calls it from the backward of
-// models.attention.FlashAttention, so gradients flow through B8 on the card.
+// kernels/flash_attention/ops.py (launch_bwd, bwd_route) calls it from the
+// backward of models.attention.FlashAttention, so gradients flow through B8
+// on the card.  It is the route for float32 and for bf16 at the widths
+// outside WGMMA_DV; bf16 at those takes the tensor-core backward,
+// flash_attention_bwd_wgmma.cu.
 //
 // Replaces: no TPU kernel.  The JAX package's Pallas kernel
 //   (src/repro/kernels/flash_attention/kernel.py, flash_attention_pallas)
@@ -27,8 +30,9 @@
 //   kernels do 2 (4 D + 2 Dv) flops a pair a query head: the scores twice
 //   more than the forward (lse here, then in each of the other two kernels),
 //   dP twice, dV, dK and dQ once each, counted with the recomputed scores.
-//   In fp32 FMA at 67 TFLOP/s outside the tensor cores.  This kernel is the
-//   simple design: a wgmma / TMA design is later work.
+//   In fp32 FMA at 67 TFLOP/s outside the tensor cores: the simple design,
+//   kept for float32 (a 3xTF32 tensor-core backward is queued) and the
+//   widths no tensor-core kernel of B8 takes.
 //
 // Design: three kernels on the stream, no atomics: every output element is
 //   written by one thread, and every sum is taken in a fixed order, so that
@@ -57,42 +61,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
-
-// The argument block, mirrored field for field by the ctypes Structure
-// _FlashBwdArgs in repro_torch/kernels/flash_attention/ops.py.  Strides are
-// in elements, in the order (b, h, s); the last stride is 1.  q, k and dq,
-// dk are (B, H, S, d); v, o, g_o (dL/dO) and dv are (B, H, S, dv).  lse and
-// delta are float32 (B, Hq, S), contiguous.
-struct FlashBwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* g_o;
-  void* g_q;
-  void* g_k;
-  void* g_v;
-  float* lse;
-  float* delta;
-  int64_t q_st[3];
-  int64_t k_st[3];
-  int64_t v_st[3];
-  int64_t o_st[3];
-  int64_t go_st[3];
-  int64_t gq_st[3];
-  int64_t gk_st[3];
-  int64_t gv_st[3];
-  int b;
-  int hq;
-  int hkv;
-  int s;
-  int d;
-  int dv;
-  int window;
-  float scale;
-  float softcap;
-  int bf16;
-};
+#include "flash_attention_bwd.cuh"
 
 namespace {
 

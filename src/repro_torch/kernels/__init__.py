@@ -39,6 +39,7 @@ LAUNCHES = {
     "flash_attention_tf32": 0,
     "flash_attention_simt": 0,
     "flash_attention_bwd": 0,
+    "flash_attention_bwd_wgmma": 0,
 }
 
 

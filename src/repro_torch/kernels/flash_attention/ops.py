@@ -15,11 +15,16 @@ in steps of 8: float32 at the other widths, and bfloat16 at the pairs
 outside ``WGMMA_DV`` (D 96, say, or D != Dv but MLA's).  None stands in
 for another: a tensor that the chosen kernel does not take raises.
 
-``launch_bwd`` runs B8's backward (``csrc/flash_attention_bwd.cu``: three
-SIMT kernels, float32 and bfloat16, D and Dv 8..256 in steps of 8), the
-gradients of every route's forward; it counts one launch a call under
-``LAUNCHES["flash_attention_bwd"]``.  Its plain version is
-``ref.flash_attention_bwd_ref``.
+``launch_bwd`` runs B8's backward, the gradients of every route's forward,
+through the kernel ``bwd_route(dtype, d, dv)`` names: bfloat16 at a pair in
+``WGMMA_DV`` the tensor-core backward of ``csrc/flash_attention_bwd_wgmma.cu``
+(``launch_bwd_wgmma``, ``LAUNCHES["flash_attention_bwd_wgmma"]``), every other
+dtype and pair the SIMT backward of ``csrc/flash_attention_bwd.cu``
+(``launch_bwd_simt``, ``LAUNCHES["flash_attention_bwd"]``; float32 and
+bfloat16, D and Dv 8..256 in steps of 8).  Each is three kernels on the
+stream and counts one launch a call.  Their plain versions are
+``ref.flash_attention_bwd_ref`` (the formulas) and
+``ref.flash_attention_bwd_split_ref`` (the tensor-core route's arithmetic).
 """
 from __future__ import annotations
 
@@ -109,17 +114,22 @@ def launch_simt(q, k, v, out, *, scale: float, softcap: float = 0.0,
     LAUNCHES["flash_attention_simt"] += 1
 
 
-def _check_tma(q, k, v, out) -> None:
-    """What TMA reads and the tensor-core kernels store through: (b, h, s)
-    strides of a multiple of 16 bytes and data starting on 16 bytes."""
-    req = _build.require
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        nbytes = t.element_size()
-        req(all(st * nbytes % _TMA_ALIGN == 0 for st in t.stride()[:3]),
-            f"{name} strides {t.stride()}: TMA needs (b, h, s) strides of a "
-            f"multiple of {_TMA_ALIGN} bytes")
-        req(t.data_ptr() % _TMA_ALIGN == 0,
-            f"{name} must start on a {_TMA_ALIGN}-byte boundary for TMA")
+def tma_readable(t: torch.Tensor) -> bool:
+    """Whether TMA reads the (B, H, S, width) view ``t``: (b, h, s) strides
+    of a multiple of 16 bytes and data starting on 16 bytes."""
+    nbytes = t.element_size()
+    return (all(st * nbytes % _TMA_ALIGN == 0 for st in t.stride()[:3])
+            and t.data_ptr() % _TMA_ALIGN == 0)
+
+
+def _check_tma(**views) -> None:
+    """What TMA reads and the tensor-core kernels store through: each view
+    ``tma_readable``, else ValueError naming it."""
+    for name, t in views.items():
+        _build.require(tma_readable(t), (
+            f"{name} strides {t.stride()} from byte {t.data_ptr()}: TMA "
+            f"needs (b, h, s) strides of a multiple of {_TMA_ALIGN} bytes and "
+            f"data starting on {_TMA_ALIGN} bytes"))
 
 
 def launch_wgmma(q, k, v, out, *, scale: float, softcap: float = 0.0,
@@ -135,7 +145,7 @@ def launch_wgmma(q, k, v, out, *, scale: float, softcap: float = 0.0,
         f"the tensor-core kernel takes bfloat16, got {q.dtype}")
     req((d, dv) in WGMMA_DV, f"(D, Dv) = ({d}, {dv}): the tensor-core "
         f"kernel takes {WGMMA_DV}")
-    _check_tma(q, k, v, out)
+    _check_tma(q=q, k=k, v=v, out=out)
     _run("repro_flash_attention_wgmma", q, k, v, out, scale, softcap, window)
     LAUNCHES["flash_attention_wgmma"] += 1
 
@@ -152,7 +162,7 @@ def launch_tf32(q, k, v, out, *, scale: float, softcap: float = 0.0,
         f"the float32 tensor-core kernel takes float32, got {q.dtype}")
     req(d == dv and d in TF32_D, f"(D, Dv) = ({d}, {dv}): the float32 "
         f"tensor-core kernel takes D = Dv in {TF32_D}")
-    _check_tma(q, k, v, out)
+    _check_tma(q=q, k=k, v=v, out=out)
     _run("repro_flash_attention_tf32", q, k, v, out, scale, softcap, window)
     LAUNCHES["flash_attention_tf32"] += 1
 
@@ -168,7 +178,7 @@ def launch(q, k, v, out, *, scale: float, softcap: float = 0.0,
 
 class _FlashBwdArgs(ctypes.Structure):
     """Field for field the ``FlashBwdArgs`` struct of
-    csrc/flash_attention_bwd.cu."""
+    csrc/flash_attention_bwd.cuh."""
     _fields_ = [
         ("q", _P), ("k", _P), ("v", _P), ("o", _P), ("g_o", _P),
         ("g_q", _P), ("g_k", _P), ("g_v", _P), ("lse", _P), ("delta", _P),
@@ -181,40 +191,89 @@ class _FlashBwdArgs(ctypes.Structure):
     ]
 
 
-def launch_bwd(q, k, v, out, dout, *, scale: float, softcap: float = 0.0,
-               window: int = 0):
-    """B8's backward kernel: the gradients of q, k and v, given the
-    forward's ``out`` and the gradient ``dout`` that reaches it.
+def bwd_route(dtype: torch.dtype, d: int, dv: int | None = None) -> str:
+    """'wgmma' or 'simt': the backward kernel that a CUDA tensor of this
+    dtype, q / k width D and v width Dv (default D) launches."""
+    dv = d if dv is None else dv
+    return "wgmma" if dtype == torch.bfloat16 and (d, dv) in WGMMA_DV \
+        else "simt"
+
+
+def _check_bwd(q, k, v, out, dout) -> None:
+    _check_common(q, k, v, out)
+    req = _build.require
+    b, hq, s, _ = q.shape
+    dv = v.shape[3]
+    req(dout.dtype == q.dtype, f"dout must have q's dtype {q.dtype}")
+    req(tuple(dout.shape) == (b, hq, s, dv),
+        f"dout must be ({b}, {hq}, {s}, {dv}), got {tuple(dout.shape)}")
+    req(dout.stride(3) == 1, "dout must have a unit stride over Dv")
+    req(_build.kernel_device(q, k, v, out, dout) == "cuda",
+        "B8's backward runs on one CUDA device")
+
+
+def launch_bwd_simt(q, k, v, out, dout, *, scale: float,
+                    softcap: float = 0.0, window: int = 0):
+    """B8's SIMT backward: the gradients of q, k and v, given the forward's
+    ``out`` and the gradient ``dout`` that reaches it.
 
     q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv), out and dout (B,
     Hq, S, Dv): float32 or bfloat16 views on one card with a unit last
     stride, any (b, h, s) strides; D and Dv each 8..256 in steps of 8.
     Returns (dq, dk, dv) laid out as q, k and v (``torch.empty_like``) in
     their dtype.  Everything else raises before any launch."""
-    _check_common(q, k, v, out)
+    _check_bwd(q, k, v, out, dout)
+    for name, w in (("D", q.shape[3]), ("Dv", v.shape[3])):
+        _build.require(8 <= w <= 256 and w % 8 == 0,
+                       f"{name} = {w}: B8's backward takes 8..256 in steps "
+                       "of 8")
+    b, hq, s, _ = q.shape
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    _run_bwd("repro_flash_attention_bwd", (q, k, v, out, dout, *grads), lse,
+             torch.empty_like(lse), scale, softcap, window)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
+def launch_bwd_wgmma(q, k, v, out, dout, *, scale: float,
+                     softcap: float = 0.0, window: int = 0):
+    """B8's tensor-core backward: as ``launch_bwd_simt`` for bfloat16 at a
+    (D, Dv) in ``WGMMA_DV``, with every view ``tma_readable``.  Its lse and
+    delta scratch pads S to a multiple of 64 rows, so that each query
+    tile's rows arrive by one bulk copy."""
+    _check_bwd(q, k, v, out, dout)
     req = _build.require
     b, hq, s, d = q.shape
     dv = v.shape[3]
-    req(dout.dtype == q.dtype, f"dout must have q's dtype {q.dtype}")
-    req(tuple(dout.shape) == (b, hq, s, dv),
-        f"dout must be ({b}, {hq}, {s}, {dv}), got {tuple(dout.shape)}")
-    req(dout.stride(3) == 1, "dout must have a unit stride over Dv")
-    for name, w in (("D", d), ("Dv", dv)):
-        req(8 <= w <= 256 and w % 8 == 0,
-            f"{name} = {w}: B8's backward takes 8..256 in steps of 8")
-    req(_build.kernel_device(q, k, v, out, dout) == "cuda",
-        "B8's backward runs on one CUDA device")
-    g_q, g_k, g_v = (torch.empty_like(t) for t in (q, k, v))
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    _run_bwd((q, k, v, out, dout, g_q, g_k, g_v), lse,
-             torch.empty_like(lse), scale, softcap, window)
-    LAUNCHES["flash_attention_bwd"] += 1
-    return g_q, g_k, g_v
+    req(q.dtype == torch.bfloat16,
+        f"the tensor-core backward takes bfloat16, got {q.dtype}")
+    req((d, dv) in WGMMA_DV, f"(D, Dv) = ({d}, {dv}): the tensor-core "
+        f"backward takes {WGMMA_DV}")
+    _check_tma(q=q, k=k, v=v, out=out, dout=dout)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((b, hq, -(-s // 64) * 64), dtype=torch.float32,
+                      device=q.device)
+    _run_bwd("repro_flash_attention_bwd_wgmma", (q, k, v, out, dout, *grads),
+             lse, torch.empty_like(lse), scale, softcap, window)
+    LAUNCHES["flash_attention_bwd_wgmma"] += 1
+    return grads
 
 
-def _run_bwd(tensors, lse, delta, scale, softcap, window) -> None:
-    """The C call of ``launch_bwd`` on (q, k, v, out, dout, dq, dk, dv)
-    and the (B, Hq, S) float32 scratch."""
+def launch_bwd(q, k, v, out, dout, *, scale: float, softcap: float = 0.0,
+               window: int = 0):
+    """B8's backward through the kernel ``bwd_route`` names for q's dtype,
+    D and v's Dv: returns (dq, dk, dv).  A view that the chosen kernel
+    does not take raises; neither kernel stands in for the other."""
+    fn = {"wgmma": launch_bwd_wgmma, "simt": launch_bwd_simt}[
+        bwd_route(q.dtype, q.shape[3], v.shape[3])]
+    return fn(q, k, v, out, dout, scale=scale, softcap=softcap,
+              window=window)
+
+
+def _run_bwd(entry, tensors, lse, delta, scale, softcap, window) -> None:
+    """The C call ``entry`` of a backward route on (q, k, v, out, dout, dq,
+    dk, dv) and the float32 lse and delta scratch."""
     q, k, v = tensors[:3]
     b, hq, s, d = q.shape
     a = _FlashBwdArgs(
@@ -228,9 +287,8 @@ def _run_bwd(tensors, lse, delta, scale, softcap, window) -> None:
         setattr(a, ptr, t.data_ptr())
         getattr(a, st)[:] = t.stride()[:3]
     with torch.cuda.device(q.device):
-        _build.call("repro_flash_attention_bwd",
-                    [ctypes.POINTER(_FlashBwdArgs), _P], ctypes.byref(a),
-                    _build.stream_of(q))
+        _build.call(entry, [ctypes.POINTER(_FlashBwdArgs), _P],
+                    ctypes.byref(a), _build.stream_of(q))
 
 
 def flash_attention(q, k, v, *, scale: float | None = None,

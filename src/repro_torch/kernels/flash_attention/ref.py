@@ -1,7 +1,9 @@
 """Plain PyTorch versions of causal GQA attention (B8): the materialised
 softmax of ``repro.kernels.flash_attention.ref``, the arithmetic of the two
 tensor-core kernels, and B8's backward (``flash_attention_bwd_ref``, the
-plain version of ``csrc/flash_attention_bwd.cu``)."""
+plain version of ``csrc/flash_attention_bwd.cu``, and
+``flash_attention_bwd_split_ref``, the arithmetic of
+``csrc/flash_attention_bwd_wgmma.cu``)."""
 from __future__ import annotations
 
 import torch
@@ -44,6 +46,23 @@ def flash_attention_ref(q, k, v, *, scale: float | None = None,
 
 
 
+def _masked_scores(qf, kf, scale, softcap, window, c0=0):
+    """Scaled (capped) scores of q against keys c0.. in float32, the mask,
+    and the cap's derivative 1 - tanh^2 (1.0 without a cap)."""
+    S = qf.shape[2]
+    raw = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    s, dcap = raw, 1.0
+    if softcap > 0.0:
+        t = torch.tanh(raw / softcap)
+        s, dcap = softcap * t, 1.0 - t * t
+    rows = torch.arange(S, device=qf.device)[:, None]
+    cols = torch.arange(c0, c0 + kf.shape[2], device=qf.device)[None, :]
+    mask = cols <= rows
+    if window > 0:
+        mask = mask & (cols > rows - window)
+    return torch.where(mask, s, _NEG), mask, dcap
+
+
 def flash_attention_bwd_ref(q, k, v, out, dout, *, scale: float,
                             softcap: float = 0.0, window: int = 0):
     """The gradients of ``flash_attention_ref`` by explicit formulas.
@@ -63,17 +82,7 @@ def flash_attention_bwd_ref(q, k, v, out, dout, *, scale: float,
     qf, of, dof = q.float(), out.float(), dout.float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    raw = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    s = raw
-    if softcap > 0.0:
-        t = torch.tanh(raw / softcap)
-        s = softcap * t
-    rows = torch.arange(S, device=q.device)[:, None]
-    cols = torch.arange(S, device=q.device)[None, :]
-    mask = cols <= rows
-    if window > 0:
-        mask = mask & (cols > rows - window)
-    s = torch.where(mask, s, _NEG)
+    s, mask, dcap = _masked_scores(qf, kf, scale, softcap, window)
     m = s.amax(dim=-1, keepdim=True)
     lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
     p = torch.where(mask, torch.exp(s - lse), 0.0)
@@ -81,12 +90,105 @@ def flash_attention_bwd_ref(q, k, v, out, dout, *, scale: float,
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
     if softcap > 0.0:
-        ds = ds * (1.0 - t * t)
+        ds = ds * dcap
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     dk = dk.reshape(B, Hkv, group, S, D).sum(dim=2)
     dv = dv.reshape(B, Hkv, group, S, v.shape[3]).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# (D, Dv) -> (dkdv's two warpgroups take alternate query tiles, its
+# chunk of queries, dq's chunk of keys): the table at the end of
+# csrc/flash_attention_bwd_wgmma.cu
+BWD_WGMMA_PLAN = {(64, 64): (True, 64, 64), (80, 80): (True, 32, 64),
+                  (128, 128): (False, 64, 64), (192, 128): (False, 32, 32),
+                  (256, 256): (False, 64, 64)}
+# The kernel's tile of keys and of queries (kT in
+# csrc/flash_attention_bwd_wgmma.cu); the plan's chunks divide it.
+_BWD_TILE = 64
+
+
+def flash_attention_bwd_split_ref(q, k, v, out, dout, *, scale: float,
+                                  softcap: float = 0.0, window: int = 0,
+                                  split: bool = True):
+    """The arithmetic of B8-bwd's tensor-core kernel in plain PyTorch.
+
+    Arguments and result as ``flash_attention_bwd_ref``.  Each row's
+    log-sum-exp by an online max and sum over tiles of ``_BWD_TILE`` keys
+    (pre), delta = sum(dout * out) a row, P = exp(s - lse) and dS = P (dP -
+    delta) (times the cap's derivative) in float32 from the scores and dP
+    of bf16 values.  Then, in the kernel's order (``BWD_WGMMA_PLAN``): dV =
+    P^T dO and dK = dS^T Q of a key tile over the group's query heads and,
+    in each, its query tiles (dkdv; at 64 and 80 alternately into two sums,
+    added at the end), and dQ = dS K over the key tiles (dq), each tile in
+    chunks of the plan's width, P and dS entering each product as p_hi +
+    p_lo, p_hi = bf16(p), p_lo = bf16(p - p_hi): two float32-accumulated
+    products, the kernel's two register-A passes.  ``split=False`` is the
+    variant not taken, P and dS rounded once.
+    """
+    B, Hq, S, D = q.shape
+    Hkv, Dv = k.shape[1], v.shape[3]
+    group = Hq // Hkv
+    alternate, kv_chunk, q_chunk = BWD_WGMMA_PLAN.get((D, Dv),
+                                                      (False, 64, 64))
+    qf, of, gf = q.float(), out.float(), dout.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    m = torch.full((B, Hq, S, 1), _NEG, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), device=q.device)
+    for c0 in range(0, S, _BWD_TILE):
+        s, _, _ = _masked_scores(qf, kf[:, :, c0:c0 + _BWD_TILE], scale,
+                                 softcap, window, c0)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where((s > _NEG / 2) & (m_new > _NEG / 2),
+                        torch.exp(s - m_new), 0.0)
+        corr = torch.where(m > _NEG / 2, torch.exp(m - m_new), 0.0)
+        l = corr * l + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)
+    delta = (gf * of).sum(dim=-1, keepdim=True)
+    s, mask, dcap = _masked_scores(qf, kf, scale, softcap, window)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    ds = torch.where(mask, p * (gf @ vf.transpose(-1, -2) - delta) * dcap,
+                     0.0)
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    def dkdv(x, y):
+        """x^T y of each key tile, (B, Hkv, S, width), in dkdv's order."""
+        xs = [t.reshape(B, Hkv, group, S, S) for t in parts(x)]
+        y = y.reshape(B, Hkv, group, S, y.shape[-1])
+        out_ = torch.zeros((B, Hkv, S, y.shape[-1]), device=q.device)
+        for j0 in range(0, S, _BWD_TILE):
+            j1 = min(j0 + _BWD_TILE, S)
+            last = S - 1 if window <= 0 else min(S - 1, j1 - 1 + window - 1)
+            sums = [torch.zeros_like(out_[:, :, j0:j1]) for _ in range(2)]
+            it = 0
+            for g in range(group):
+                for r0 in range(j0, last // _BWD_TILE * _BWD_TILE + 1,
+                                _BWD_TILE):
+                    acc = sums[it % 2 if alternate else 0]
+                    for c in range(r0, min(r0 + _BWD_TILE, S), kv_chunk):
+                        for xp in xs:
+                            acc += xp[:, :, g, c:c + kv_chunk, j0:j1] \
+                                .transpose(-1, -2) @ y[:, :, g, c:c + kv_chunk]
+                    it += 1
+            out_[:, :, j0:j1] = sums[0] + sums[1] if alternate else sums[0]
+        return out_
+
+    dv = dkdv(p, gf)
+    dk = dkdv(ds, qf) * scale
+    dq = torch.zeros_like(qf)
+    ds_parts = parts(ds)
+    for c in range(0, S, q_chunk):
+        for xp in ds_parts:
+            dq = dq + xp[..., c:c + q_chunk] @ kf[:, :, c:c + q_chunk]
+    dq = dq * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
 
 def flash_attention_split_p_ref(q, k, v, *, scale: float | None = None,
                                 softcap: float = 0.0, window: int = 0,

@@ -5,14 +5,15 @@
 ``flash_chunked`` takes the model's (B, S, H, D) layout, with values of
 their own width Dv (MLA's 128 against its queries' and keys' 192).  On a
 CUDA tensor it launches B8 (``kernels.flash_attention``: the tensor-core
-kernel for bf16 at D = Dv 64, 128 and 256 and at (192, 128), its 3xTF32
+kernel for bf16 at D = Dv 64, 80, 128 and 256 and at (192, 128), its 3xTF32
 counterpart for float32 at D = Dv 64 and 128, the SIMT kernel otherwise)
 through strides, with no transpose copy; on a CPU tensor it runs
 ``flash_chunked_ref``, the plain online softmax over KV chunks of the JAX
 function, which also runs on the card as B8's plain version.  It goes
 through ``FlashAttention``, an autograd Function whose backward is B8's
-backward kernel on the card (``csrc/flash_attention_bwd.cu``) and its
-plain version ``flash_attention_bwd_ref`` on the CPU, so a loss
+backward on the card (``csrc/flash_attention_bwd_wgmma.cu`` on the tensor
+cores at the bf16 widths above, ``csrc/flash_attention_bwd.cu`` otherwise)
+and its plain version ``flash_attention_bwd_ref`` on the CPU, so a loss
 differentiates through attention on either device.
 
 Decode (``gqa_apply`` with a cache) writes the new token's K and V into
@@ -104,9 +105,11 @@ class FlashAttention(torch.autograd.Function):
 
     Forward: B8 on the card (the kernel ``kernel_route`` names, through
     strides) and ``flash_chunked_ref(q, k, v, **kw)`` on the CPU.
-    Backward: B8's backward kernel on the card (``launch_bwd``) and its
-    plain version ``flash_attention_bwd_ref`` on the CPU, from the saved q,
-    k, v and output.  ``save`` (grad mode on and an input that requires
+    Backward: B8's backward on the card (``launch_bwd``: the tensor-core
+    kernel for bf16 at B8's tensor-core widths, the SIMT kernel otherwise,
+    as ``bwd_route`` names) and its plain version
+    ``flash_attention_bwd_ref`` on the CPU, from the saved q, k, v and
+    output.  ``save`` (grad mode on and an input that requires
     grad, decided by the caller: inside ``forward`` grad mode is off) keeps
     those four for the backward; without it nothing is kept, and a call
     under ``no_grad`` or ``inference_mode`` runs exactly the forward's
@@ -132,7 +135,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        if dout.stride(-1) != 1:
+        # autograd may hand over any strides: copy only a dout that the
+        # kernels cannot read (a non-unit last stride, or one TMA cannot
+        # read), so that the model's own (B, S, H, D) views go through
+        if dout.stride(-1) != 1 or not flash_ops.tma_readable(
+                dout.transpose(1, 2)):
             dout = dout.contiguous()
         args = [t.transpose(1, 2) for t in (q, k, v, out, dout)]
         kw = dict(scale=ctx.kw["scale"], softcap=ctx.kw["cap"],

@@ -3,11 +3,11 @@
 ``flash_chunked_ref`` and against ``jax.vjp`` of the JAX package's
 ``repro.models.attention.flash_chunked``; the gradients through
 ``models.attention.FlashAttention`` (what ``flash_chunked`` runs) equal
-the plain backward's; and ``launch_bwd``, the wrapper of the CUDA kernel
-(``csrc/flash_attention_bwd.cu``), on meta tensors with the C call
-stubbed: it refuses what the kernel does not take before any launch, and
-a CUDA tensor that requires grad goes through B8 forward and backward
-kernels, each counted once.
+the plain backward's; and ``launch_bwd``, the wrapper of the CUDA kernels
+(``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd_wgmma.cu``), on
+meta tensors with the C call stubbed: it refuses what the kernels do not
+take before any launch, and a CUDA tensor that requires grad goes through
+B8 forward and backward kernels, each counted once.
 
 Tolerance: float32, |got - want| <= RTOL * max|want| for each gradient
 (the same float32 quantities summed in another order: measured at most
@@ -149,7 +149,7 @@ def stubbed(monkeypatch):
     monkeypatch.setattr(_build, "kernel_device", lambda *t: "cuda")
     monkeypatch.setattr(ops, "_run", lambda entry, *a: calls.append(entry))
     monkeypatch.setattr(ops, "_run_bwd",
-                        lambda *a: calls.append("repro_flash_attention_bwd"))
+                        lambda entry, *a: calls.append(entry))
     kernels.reset_launches()
     return calls
 
@@ -194,7 +194,8 @@ def test_cuda_tensor_that_requires_grad_launches_b8_bwd(stubbed, dtype, d,
                                                          dv, route):
     """On a CUDA tensor that requires grad, flash_chunked returns a tensor
     whose grad_fn is FlashAttention's; its backward launches B8's backward
-    kernel once (whatever route the forward took) and nothing else, and
+    once, on the kernel ``bwd_route`` names (the tensor-core one for bf16
+    where the forward's is, the SIMT one otherwise), and nothing else, and
     the gradients come back in the model's (B, S, H, D) layout."""
     q = torch.empty((2, 24, 4, d), dtype=dtype, device="meta",
                     requires_grad=True)
@@ -206,11 +207,12 @@ def test_cuda_tensor_that_requires_grad_launches_b8_bwd(stubbed, dtype, d,
     assert stubbed == [f"repro_flash_attention_{route}"]
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     grads = torch.autograd.grad(out.sum(), (q, k, v))
-    assert stubbed[1:] == ["repro_flash_attention_bwd"]
-    assert kernels.LAUNCHES["flash_attention_bwd"] == 1
+    bwd = "flash_attention_bwd" + ("_wgmma" if route == "wgmma" else "")
+    assert stubbed[1:] == [f"repro_{bwd}"]
+    assert kernels.LAUNCHES[bwd] == 1
     assert kernels.LAUNCHES[f"flash_attention_{route}"] == 1
     assert sum(kernels.LAUNCHES.values()) == 2
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
     with torch.no_grad():
         t_attn.flash_chunked(q, k, v, scale=d ** -0.5)
-    assert kernels.LAUNCHES["flash_attention_bwd"] == 1
+    assert kernels.LAUNCHES[bwd] == 1

@@ -32,6 +32,7 @@ from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.train import make_data_fn, reduced_variant  # noqa: E402
+from repro_torch.runtime.straggler import StepTimeMonitor  # noqa: E402
 from repro_torch.runtime.trainer import (SimulatedFailure, Trainer,  # noqa: E402
                                          TrainerConfig)
 
@@ -72,6 +73,10 @@ def test_loss_decreases(tmp_path):
 def test_failure_injection_and_exact_restart(tmp_path):
     ref_hist = _setup(tmp_path / "ref", total=20, ckpt_every=8).run()
     crash = _setup(tmp_path / "crash", total=20, fail_at=13, ckpt_every=8)
+    # a step slowed by a loaded host can raise a straggler alarm and a
+    # snapshot between the periodic ones: no alarm here (the alarm's own
+    # snapshots are held to the same restart in the straggler tests)
+    crash.monitor = StepTimeMonitor(z_thresh=float("inf"))
     with pytest.raises(SimulatedFailure):
         crash.run()
     assert [h["step"] for h in crash.history] == list(range(13))
@@ -148,13 +153,48 @@ def test_exact_restart_with_writes_held_past_the_next_step(tmp_path,
     counted = _hold_writes(monkeypatch)
     crash = _setup(tmp_path / "crash", total=20, fail_at=13)
     crash.step_fn = counted(crash.step_fn)
+    # a held write slows the step it overlaps, which can raise a straggler
+    # alarm and a snapshot at 10 between the periodic ones: no alarm here
+    crash.monitor = StepTimeMonitor(z_thresh=float("inf"))
     with pytest.raises(SimulatedFailure):
         crash.run()
     resume = _setup(tmp_path / "crash", total=20)
     resume.step_fn = counted(resume.step_fn)
+    resume.monitor = StepTimeMonitor(z_thresh=float("inf"))
     assert resume.maybe_restore() and resume.start_step == 8
     hist = resume.run()
     assert [h["step"] for h in hist] == list(range(8, 20))
+    for h in hist:
+        assert h["loss"] == ref[h["step"]], h["step"]
+
+
+def test_straggler_snapshot_with_its_write_held_restarts_exactly(
+        tmp_path, monkeypatch):
+    """A straggler snapshot whose write is held until the next step has
+    updated the state in place: the alarm planted on step 10 snapshots 11
+    between the periodic 8 and the crash at 13, and the rerun resumes from
+    it bit for bit as the uninterrupted run."""
+    ref = {h["step"]: h["loss"]
+           for h in _setup(tmp_path / "ref", total=20).run()}
+    counted = _hold_writes(monkeypatch)
+    crash = _setup(tmp_path / "crash", total=20, fail_at=13)
+    crash.step_fn = counted(crash.step_fn)
+    calls = []
+
+    def observe(dt):
+        calls.append(dt)
+        return "straggler: injected" if len(calls) == 11 else None
+
+    crash.monitor.observe = observe
+    with pytest.raises(SimulatedFailure):
+        crash.run()
+    assert Checkpointer(tmp_path / "crash").all_steps() == [8, 11]
+    resume = _setup(tmp_path / "crash", total=20)
+    resume.step_fn = counted(resume.step_fn)
+    resume.monitor.observe = lambda dt: None
+    assert resume.maybe_restore() and resume.start_step == 11
+    hist = resume.run()
+    assert [h["step"] for h in hist] == list(range(11, 20))
     for h in hist:
         assert h["loss"] == ref[h["step"]], h["step"]
 
